@@ -11,16 +11,19 @@ phase ends the run with a nonzero exit code and no result line:
 1. device   torch and CUDA versions, the card's name and capability (9, 0);
 2. build    the CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``,
             with each kernel's registers, stack, shared and local memory;
-3. kernel   ``mth_smallest`` held bitwise to its plain version at the
-            simulator's shapes, float32 and float64, with tie-heavy and
-            ``+inf`` rows, and timed beside ``torch.sort`` (its plain
+3. kernel   ``mth_smallest`` held bitwise to its plain version at every
+            shape and ``m`` the phases below hand it and at wider rows,
+            float32 and float64, on uniform, tie-heavy and ``+inf`` rows
+            and on the first round's finish times, and timed beside ``torch.sort`` (its plain
             version), ``torch.kthvalue`` (one library call) and its bound;
 4. main     the m-Sync simulator at paper scale (``fixed_sqrt``, n=1000,
             128 seeds, 2000 rounds, m=32) through ``run_experiment``,
             checked against the same run on the CPU and, at n=100, against
             the committed fig8 baseline;
 5. sampled  exponential times with the worst-case quadratic (d=1000);
-6. scale    n=10000 workers, 1024 seeds, with peak device memory;
+6. scale    n=10000 workers, 1024 seeds, with peak device memory; the
+            sampled and scale phases also hold the kernel to its plain
+            version on their own first round's finish times;
 7. profile  device-busy share and top device kernels of a short main run.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
@@ -45,6 +48,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 MAIN = dict(scenario="fixed_sqrt", n=1000, seeds=128, K=2000, m=32)
+SAMPLED = dict(scenario="exponential", n=1000, seeds=128, K=500, m=32,
+               d=1000)
+SCALE = dict(scenario="exponential", n=10000, seeds=1024, K=200, m=100)
+# every (seeds, workers) shape and every m that a phase hands the kernel,
+# and wider rows than the simulator's
+SHAPES = ((128, 1000), (1024, 10000), (32, 10000), (4, 100000))
+PATH_MS = {MAIN["m"], SAMPLED["m"], SCALE["m"]}
 
 
 def emit(obj):
@@ -123,9 +133,37 @@ def phase_build():
           "kernels": usage})
 
 
+def _first_round(scenario, S, n, dtype):
+    """The candidate finish times that the simulator's first round hands
+    the kernel under a sampled ``scenario`` with seeds ``0..S-1``: every
+    worker's first duration, drawn as the simulator draws it."""
+    from repro_torch.core import rng
+    from repro_torch.exp import make_scenario
+    model = make_scenario(scenario, n)
+    keys = rng.seed_keys(range(S), "cuda")
+    return model.device_sampler("cuda", dtype)(
+        rng.uniforms(keys, 0, rng.INIT, n, dtype))
+
+
+def _assert_equal_to_plain(x, m, what):
+    """``mth_smallest`` bitwise equal to ``mth_smallest_plain`` on ``x``."""
+    import torch
+
+    from repro_torch.kernels import order_stats as ost
+    got = ost.mth_smallest(x, m)
+    want = ost.mth_smallest_plain(x, m).contiguous()
+    int_type = torch.int32 if x.dtype == torch.float32 else torch.int64
+    if not torch.equal(got.view(int_type), want.view(int_type)):
+        raise AssertionError(f"mth_smallest differs from sort at {what} "
+                             f"{tuple(x.shape)} {x.dtype} m={m}")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
 def _cases(S, n, dtype, gen):
-    """Uniform finish times, tie-heavy integer rows, and rows of workers
-    that never finish (+inf), on the card."""
+    """Uniform finish times, tie-heavy integer rows, rows of workers that
+    never finish (+inf), and the first round of exponential times, on
+    the card."""
     import torch
     dev = "cuda"
     uniform = torch.rand((S, n), generator=gen, device=dev,
@@ -134,7 +172,8 @@ def _cases(S, n, dtype, gen):
     inf = ties.clone()
     inf[0::2, : n // 2] = float("inf")
     inf[1::4] = float("inf")
-    return {"uniform": uniform, "ties": ties, "inf": inf}
+    return {"uniform": uniform, "ties": ties, "inf": inf,
+            "exponential": _first_round("exponential", S, n, dtype)}
 
 
 def phase_kernel():
@@ -143,27 +182,17 @@ def phase_kernel():
     from repro_torch.kernels import order_stats as ost
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for S, n in ((128, 1000), (32, 10000), (4, 100000)):
+    for S, n in SHAPES:
         for dtype in (torch.float32, torch.float64):
             cases = _cases(S, n, dtype, gen)
-            int_type = torch.int32 if dtype == torch.float32 else torch.int64
+            ms = sorted(m for m in {1, 37, n // 2, n} | PATH_MS if m <= n)
             max_err = 0.0
             for name, x in cases.items():
-                for m in sorted({1, 32, 37, n // 2, n}):
-                    got = ost.mth_smallest(x, m)
-                    want = ost.mth_smallest_plain(x, m).contiguous()
-                    torch.cuda.synchronize()
-                    if not torch.equal(got.view(int_type),
-                                       want.view(int_type)):
-                        raise AssertionError(
-                            f"mth_smallest differs from sort at {name} "
-                            f"{(S, n)} {dtype} m={m}")
-                    fin = torch.isfinite(want)
-                    if fin.any():
-                        max_err = max(max_err, float(
-                            (got[fin] - want[fin]).abs().max()))
+                for m in ms:
+                    max_err = max(max_err, _assert_equal_to_plain(x, m, name))
             x = cases["uniform"]
-            m = MAIN["m"]
+            m = SCALE["m"] if (S, n) == (SCALE["seeds"], SCALE["n"]) \
+                else MAIN["m"]
             iters = 200 if S * n <= 400_000 else 50
             runs = {"plain": [], "kernel": [], "library": []}
             for which in ("plain", "kernel", "library", "kernel", "plain",
@@ -175,7 +204,8 @@ def phase_kernel():
             bnd, by = bound_ms(S, n, x.element_size())
             rec = {"phase": "kernel", "shape": [S, n],
                    "dtype": str(dtype).replace("torch.", ""), "m": m,
-                   "cases": sorted(cases), "bitwise_equal": True,
+                   "cases": sorted(cases), "ms_checked": ms,
+                   "bitwise_equal": True,
                    "max_abs_err": max_err,
                    "kernel_ms": sum(runs["kernel"]) / 2,
                    "plain_ms": sum(runs["plain"]) / 2,
@@ -262,12 +292,15 @@ def phase_sampled():
     from repro_torch.core import quadratic_worst_case_torch
     from repro_torch.exp import run_experiment
     from repro_torch.kernels import order_stats as ost
-    n, S, K, m, d = 1000, 128, 500, 32, 1000
+    scen, n, S, K, m, d = (SAMPLED[k] for k in
+                           ("scenario", "n", "seeds", "K", "m", "d"))
+    _assert_equal_to_plain(_first_round(scen, S, n, torch.float32), m,
+                           "the sampled phase's first round")
     problem = quadratic_worst_case_torch(d=d, p=0.1)
     torch.cuda.synchronize()
     ost.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_experiment(("msync", {"m": m}), "exponential", n=n, K=K,
+    res = run_experiment(("msync", {"m": m}), scen, n=n, K=K,
                          seeds=S, problem=problem, gamma=1.0,
                          target_frac=0.5, device="cuda")
     wall = time.perf_counter() - t0
@@ -283,8 +316,7 @@ def phase_sampled():
     if ost.launch_counts["mth_smallest"] != K:
         raise AssertionError(f"launches {ost.launch_counts}")
     row = res.rows[0]
-    emit({"phase": "sampled", "scenario": "exponential", "n": n, "K": K,
-          "seeds": S, "m": m, "d": d, "p": 0.1, "gamma": 1.0,
+    emit({"phase": "sampled", **SAMPLED, "p": 0.1, "gamma": 1.0,
           "launches": dict(ost.launch_counts), "wall_s": wall,
           "rounds_per_s": K / wall, "f_start": f0,
           "f_end_mean": float(f_end.mean()), "f_end_max": float(f_end.max()),
@@ -296,12 +328,15 @@ def phase_scale():
 
     from repro_torch.exp import run_experiment
     from repro_torch.kernels import order_stats as ost
-    n, S, K, m = 10000, 1024, 200, 100
+    scen, n, S, K, m = (SCALE[k] for k in
+                        ("scenario", "n", "seeds", "K", "m"))
+    _assert_equal_to_plain(_first_round(scen, S, n, torch.float32), m,
+                           "the scale phase's first round")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ost.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_experiment(("msync", {"m": m}), "exponential", n=n, K=K,
+    res = run_experiment(("msync", {"m": m}), scen, n=n, K=K,
                          seeds=S, device="cuda")
     wall = time.perf_counter() - t0
     tt = res.batch.total_time
@@ -311,8 +346,7 @@ def phase_scale():
         raise AssertionError("bad totals at scale")
     if ost.launch_counts["mth_smallest"] != K:
         raise AssertionError(f"launches {ost.launch_counts}")
-    emit({"phase": "scale", "scenario": "exponential", "n": n, "K": K,
-          "seeds": S, "m": m, "launches": dict(ost.launch_counts),
+    emit({"phase": "scale", **SCALE, "launches": dict(ost.launch_counts),
           "wall_s": wall, "rounds_per_s": K / wall,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "total_time_mean": float(tt.mean())})

@@ -1,64 +1,33 @@
-"""Carry the reference's objects across into the port's.
+"""Carry the reference's time models across into the port's.
 
-The reference's time models and problems are read as plain attributes,
-NumPy arrays and the values their closures hold; this module never
-imports the JAX package. The parameters are the port's weights: a
-converted model or problem run through the port gives what the
-original gives through the reference.
+A reference model is read through its public attributes only: the
+``taus`` of a fixed-time model, the ``grid`` and ``powers`` of a
+universal or partial-participation model. This module never imports the
+JAX package. A sub-exponential model keeps its law's parameters inside
+its samplers, not in attributes, so the port builds it with its own
+factory (:func:`~repro_torch.core.time_models.exponential_times` and its
+siblings) from the same arguments; the quadratic is built the same way
+with :func:`~repro_torch.core.oracle.quadratic_worst_case_torch`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.oracle import TorchProblem, quadratic_worst_case_torch
-from .core.time_models import (FixedTimes, UniversalModel,
-                               exponential_times, shifted_exponential_times,
-                               uniform_times)
+from .core.time_models import FixedTimes, UniversalModel
 
-__all__ = ["time_model_from", "problem_from"]
-
-
-def _closure(fn) -> dict:
-    """The free variables a function closes over, by name."""
-    return {name: cell.cell_contents for name, cell in
-            zip(fn.__code__.co_freevars, fn.__closure__ or ())}
+__all__ = ["time_model_from"]
 
 
 def time_model_from(ref):
-    """The port's counterpart of a reference time model: ``FixedTimes``
-    (``taus``), a universal or partial-participation model (``grid``,
-    ``powers``), or a sub-exponential model made by the exponential,
-    shifted-exponential or uniform factory (their parameters)."""
+    """The port's counterpart of a reference ``FixedTimes`` (``taus``) or
+    universal model (``grid``, ``powers``)."""
+    if hasattr(ref, "sampler"):
+        raise TypeError(
+            f"the sub-exponential model {ref.name!r} has no parameters to "
+            "read; build it with the port's factory from the same arguments")
     if hasattr(ref, "powers") and hasattr(ref, "grid"):
         return UniversalModel(np.asarray(ref.grid), np.asarray(ref.powers))
-    if hasattr(ref, "sampler"):
-        name = str(ref.name)
-        params = _closure(ref.sampler)
-        if name.startswith("exp("):
-            return exponential_times(float(params["lam"]), int(ref.n))
-        if name == "shifted-exp":
-            return shifted_exponential_times(np.asarray(params["mus"]),
-                                             np.asarray(params["lams"]))
-        if name.startswith("uniform("):
-            return uniform_times(np.asarray(params["means"]),
-                                 float(params["half_width"]))
-        raise NotImplementedError(
-            f"no port yet of the sub-exponential model {name!r}")
     if hasattr(ref, "taus"):
         return FixedTimes(np.asarray(ref.taus))
     raise TypeError(f"not a time model: {type(ref).__name__}")
-
-
-def problem_from(ref) -> TorchProblem:
-    """The port's quadratic for a reference ``quadratic_worst_case_jax``
-    problem: ``d`` and ``p`` from its oracle, ``scale`` from its
-    matrix-vector product, and the same ``x0``."""
-    oracle = _closure(ref.stoch_grad)
-    matvec = _closure(ref.grad)["matvec"]
-    out = quadratic_worst_case_torch(d=int(oracle["d"]),
-                                     p=float(oracle["p"]),
-                                     scale=float(_closure(matvec)["sc"]))
-    if not np.array_equal(out.x0, np.asarray(ref.x0)):
-        raise ValueError("the reference problem has another x0")
-    return out

@@ -41,14 +41,6 @@ def _signed(c: int) -> int:
     return c - (1 << 64) if c >= 1 << 63 else c
 
 
-def _mix_int(z: int) -> int:
-    """splitmix64's finalizer on a Python int (64-bit pattern)."""
-    z &= _MASK64
-    z = ((z ^ (z >> 30)) * _C1) & _MASK64
-    z = ((z ^ (z >> 27)) * _C2) & _MASK64
-    return z ^ (z >> 31)
-
-
 def _lsr(z: torch.Tensor, s: int) -> torch.Tensor:
     return (z >> s) & ((1 << (64 - s)) - 1)
 
@@ -62,8 +54,8 @@ def _mix(z: torch.Tensor) -> torch.Tensor:
 
 def seed_keys(seeds: Sequence[int], device) -> torch.Tensor:
     """``(S,)`` root keys, one per seed value."""
-    return torch.tensor([_signed(_mix_int(int(s) * _GOLDEN + _GOLDEN))
-                         for s in seeds], dtype=torch.int64, device=device)
+    s = torch.tensor([int(v) for v in seeds], dtype=torch.int64)
+    return _mix((s + 1) * _signed(_GOLDEN)).to(device)
 
 
 def uniforms(keys: torch.Tensor, round_: int, purpose: int, ncols: int,
@@ -74,7 +66,9 @@ def uniforms(keys: torch.Tensor, round_: int, purpose: int, ncols: int,
     its ``i``-th element. float32 takes 23 bits of the hash and float64
     52, so ``u`` is exact, never 0 and never 1.
     """
-    tag = _signed(_mix_int((int(round_) << 8) + int(purpose) + 1))
+    # a 0-d CPU tensor enters the device ops as a scalar: no copy, no sync
+    tag = _mix(torch.tensor((int(round_) << 8) + int(purpose) + 1,
+                            dtype=torch.int64))
     stream = _mix(keys ^ tag)
     ctr = torch.arange(1, ncols + 1, dtype=torch.int64,
                        device=keys.device) * _signed(_GOLDEN)

@@ -35,7 +35,7 @@ from repro.core import simulate_batch as ref_simulate_batch
 from repro.core import batch_jax
 from repro.core.batch_jax import quadratic_worst_case_jax
 from repro_torch import simulate_batch
-from repro_torch.convert import problem_from, time_model_from
+from repro_torch.convert import time_model_from
 from repro_torch.core import batch_torch
 from repro_torch.core.oracle import quadratic_worst_case_torch
 from repro_torch.core.time_models import FixedTimes, exponential_times
@@ -156,7 +156,7 @@ def test_sampled_timing_with_injected_draws_matches_reference():
     durations, _ = _replay_reference_draws(ref_model.jax_sampler, seeds, K)
     assert durations.shape == (2 * K + 1, S, n)
     comp, _, T, _, _ = batch_torch._general_run(
-        time_model_from(ref_model), None, m, n, S, K, 0.0, seeds,
+        exponential_times(1.5, n), None, m, n, S, K, 0.0, seeds,
         device="cpu", dtype=torch.float32, durations=durations)
     for s, tr in enumerate(ref.traces[0]):
         np.testing.assert_allclose(T[:, s].numpy(), tr.times[1:], rtol=1e-6)
@@ -174,13 +174,22 @@ def test_universal_timing_matches_reference():
         assert a.gradients_computed == b.gradients_computed
 
 
+def _quadratic_pair(d, p):
+    """The reference's quadratic and the port's, made from the same
+    arguments; they start from the same point."""
+    ref_problem = quadratic_worst_case_jax(d=d, p=p)
+    problem = quadratic_worst_case_torch(d=d, p=p)
+    assert np.array_equal(problem.x0, np.asarray(ref_problem.x0))
+    return ref_problem, problem
+
+
 def _math_case(p, K=40, m=3, d=16, gamma=0.9):
     seeds = [0, 3, 5]
     ref_model = RefFixed(np.sqrt(np.arange(1, 9)))
-    ref_problem = quadratic_worst_case_jax(d=d, p=p)
+    ref_problem, problem = _quadratic_pair(d, p)
     ref = _ref_batch(("msync", {"m": m}), ref_model, K, seeds=seeds,
                      problem=ref_problem, gamma=gamma)
-    return seeds, ref_model, ref_problem, ref, K, m, gamma
+    return seeds, ref_model, problem, ref, K, m, gamma
 
 
 def _assert_math_close(ref_traces, comp, x, T, val, gn, f0=None):
@@ -198,9 +207,7 @@ def _assert_math_close(ref_traces, comp, x, T, val, gn, f0=None):
 
 def test_noiseless_oracle_matches_reference():
     """p = 1: the gate is 1 everywhere, so no draw is needed for parity."""
-    seeds, ref_model, ref_problem, ref, K, m, gamma = _math_case(p=1.0)
-    problem = problem_from(ref_problem)
-    assert (problem.d, problem.p, problem.scale) == (16, 1.0, 0.25)
+    seeds, ref_model, problem, ref, K, m, gamma = _math_case(p=1.0)
     out = batch_torch._general_run(time_model_from(ref_model), problem, m,
                                    8, len(seeds), K, gamma, seeds,
                                    device="cpu", dtype=torch.float32)
@@ -217,14 +224,14 @@ def test_noiseless_oracle_matches_reference():
 
 
 def test_noisy_oracle_with_injected_uniforms_matches_reference():
-    seeds, ref_model, ref_problem, ref, K, m, gamma = _math_case(p=0.1)
+    seeds, ref_model, problem, ref, K, m, gamma = _math_case(p=0.1)
     # FixedTimes draws nothing; only the oracle's uniforms are replayed
     _, u = _replay_reference_draws(lambda k: jnp.zeros(8), seeds, K, B=m)
     assert u.shape == (K, len(seeds), m)
-    out = batch_torch._general_run(time_model_from(ref_model),
-                                   problem_from(ref_problem), m, 8,
-                                   len(seeds), K, gamma, seeds, device="cpu",
-                                   dtype=torch.float32, oracle_uniforms=u)
+    out = batch_torch._general_run(time_model_from(ref_model), problem, m,
+                                   8, len(seeds), K, gamma, seeds,
+                                   device="cpu", dtype=torch.float32,
+                                   oracle_uniforms=u)
     _assert_math_close(ref.traces[0], *out)
     # the noise mattered: the run left the noiseless trajectory
     noiseless = batch_torch._general_run(
@@ -321,11 +328,11 @@ def test_default_device_is_the_gpu():
 def test_record_every_matches_reference():
     seeds = [1, 2]
     ref_model = RefFixed(np.sqrt(np.arange(1, 9)))
-    ref_problem = quadratic_worst_case_jax(d=10, p=1.0)
+    ref_problem, problem = _quadratic_pair(10, 1.0)
     ref = _ref_batch(("msync", {"m": 2}), ref_model, 30, seeds=seeds,
                      problem=ref_problem, gamma=0.8, record_every=4)
     tb = simulate_batch(("msync", {"m": 2}), time_model_from(ref_model), 30,
-                        problem=problem_from(ref_problem), gamma=0.8,
+                        problem=problem, gamma=0.8,
                         seeds=seeds, record_every=4, device="cpu")
     for a, b in zip(ref.traces[0], tb.traces[0]):
         assert len(b.times) == len(a.times) == 1 + 30 // 4

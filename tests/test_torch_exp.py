@@ -4,13 +4,13 @@ committed fig8 baseline reproduced, and atomic JSON artifacts."""
 import json
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.exp import scenarios as ref_scenarios
-from repro_torch.convert import time_model_from
-from repro_torch.core import optimal_m, quadratic_worst_case_torch
+from repro_torch.core import optimal_m, quadratic_worst_case_torch, rng
 from repro_torch.exp import SCENARIOS, make_scenario, run_experiment
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,6 +45,16 @@ def _small(name):
             "universal_fig4": {"t_max": 30.0}}.get(name, {})
 
 
+def _mean(x):
+    """Per-column mean and its standard error."""
+    return x.mean(0), np.sqrt(x.var(0) / x.shape[0])
+
+
+def _var(x):
+    """Per-column variance and its standard error."""
+    return _mean((x - x.mean(0)) ** 2)
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_scenario_equals_reference(name):
     n = 10
@@ -57,9 +67,18 @@ def test_scenario_equals_reference(name):
         return
     assert np.array_equal(port.taus, ref.taus)
     if hasattr(ref, "sampler"):
-        assert port.R == ref.R and port.law == time_model_from(ref).law
-        for k, v in time_model_from(ref).params.items():
-            assert np.array_equal(port.params[k], v)
+        assert port.R == ref.R and port.name == ref.name
+        # the same law: per-worker mean and variance of 20000 draws each
+        # within 4 standard errors of the reference's jax.random draws
+        draws = 20000
+        keys = rng.seed_keys(range(draws), "cpu")
+        got = port.device_sampler("cpu", torch.float64)(
+            rng.uniforms(keys, 0, rng.INIT, n, torch.float64)).numpy()
+        want = np.asarray(jax.vmap(ref.jax_sampler)(
+            jax.random.split(jax.random.PRNGKey(3), draws)), np.float64)
+        for moment in (_mean, _var):
+            (a, sa), (b, sb) = moment(got), moment(want)
+            assert (np.abs(a - b) <= 4 * np.hypot(sa, sb)).all(), (a, b)
 
 
 def test_make_scenario_errors():

@@ -115,21 +115,24 @@ def _moments(x):
                                                            0.0) / n)
 
 
-REF_SAMPLED = {
-    "exponential": lambda: ref_tm.exponential_times(2.0, 5),
-    "shifted_exp": lambda: ref_tm.shifted_exponential_times(
-        np.sqrt(np.arange(1, 6)), np.array([1.0, 2.0, 0.5, 1.0, 3.0])),
-    "uniform": lambda: ref_tm.uniform_times(np.array([1.0, 0.3, 2.0, 0.5,
-                                                      1.0]), 0.5),
+# each sampled law's factory and the arguments both packages build it from
+SAMPLED = {
+    "exponential": ("exponential_times", (2.0, 5)),
+    "shifted_exp": ("shifted_exponential_times",
+                    (np.sqrt(np.arange(1, 6)),
+                     np.array([1.0, 2.0, 0.5, 1.0, 3.0]))),
+    "uniform": ("uniform_times", (np.array([1.0, 0.3, 2.0, 0.5, 1.0]), 0.5)),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REF_SAMPLED))
+@pytest.mark.parametrize("name", sorted(SAMPLED))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sampler_matches_reference_in_distribution(name, dtype):
-    ref = REF_SAMPLED[name]()
-    port = time_model_from(ref)
+    factory, args = SAMPLED[name]
+    ref = getattr(ref_tm, factory)(*args)
+    port = getattr(tm, factory)(*args)
     assert np.array_equal(port.taus, ref.taus) and port.R == ref.R
+    assert port.name == ref.name
     draws = 20000
     keys = rng.seed_keys(range(draws), "cpu")
     sampler = port.device_sampler("cpu", dtype)
@@ -152,8 +155,10 @@ def test_convert_keeps_universal_and_fixed_models():
     assert np.array_equal(port.cum, ref.cum)
     fixed = ref_tm.FixedTimes.sqrt_law(7)
     assert np.array_equal(time_model_from(fixed).taus, fixed.taus)
-    with pytest.raises(NotImplementedError, match="gamma"):
-        time_model_from(ref_tm.gamma_times(np.ones(3), 0.25))
+    # sampled models carry no readable parameters: the port's factories
+    # build them
+    with pytest.raises(TypeError, match="factory"):
+        time_model_from(ref_tm.exponential_times(2.0, 3))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
