@@ -14,7 +14,10 @@ phase ends the run with a nonzero exit code and no result line:
 3. kernel   ``mth_smallest`` held bitwise to its plain version at every
             shape and ``m`` the phases below hand it and at wider rows,
             float32 and float64, on uniform, tie-heavy and ``+inf`` rows
-            and on the first round's finish times, and timed beside ``torch.sort`` (its plain
+            and on the first round's finish times, held to ``torch.sort``
+            on the CPU by value on rows of signed zeros and NaN of either
+            sign, and
+            timed beside ``torch.sort`` (its plain
             version), ``torch.kthvalue`` (one library call) and its bound;
 4. main     the m-Sync simulator at paper scale (``fixed_sqrt``, n=1000,
             128 seeds, 2000 rounds, m=32) through ``run_experiment``,
@@ -24,13 +27,32 @@ phase ends the run with a nonzero exit code and no result line:
 6. scale    n=10000 workers, 1024 seeds, with peak device memory; the
             sampled and scale phases also hold the kernel to its plain
             version on their own first round's finish times;
-7. profile  device-busy share and top device kernels of a short main run.
+7. rwkv_kernel  the ``rwkv_scan`` kernel held to the float64 step
+            recurrence (its plain version) at every shape the two phases
+            below hand it and at T=1, 63, 65, 4096, B*H=1 and 80, bfloat16
+            and float32 inputs, decays across the model's range
+            [exp(-e), exp(-e^-8)] with a head held at exactly exp(-e);
+            max |y - y64| <= 2e-4 max |y64|, and the same for the state;
+            timed beside the plain version and its bound;
+8. rwkv_prefill  ``Model.prefill`` of ``rwkv6-3b`` at full width (random
+            weights from a seed), B=2, S=4096, bfloat16 and float32: wall
+            time, tokens/s, peak memory, 32 kernel launches, the kernel
+            held to the float64 recurrence on the first and last layers'
+            own scan inputs, and the logits against the same prefill with
+            the plain scan (``impl="ref"``);
+9. rwkv_serve  ``ServeEngine.generate`` (float32, 4 slots, greedy, 16 new
+            tokens) on 6 prompts of 16-130 tokens: the logits each first
+            token was sampled from against ``Model.prefill`` of the prompt
+            on the kernel path;
+10. profile  device-busy share and top device kernels of a short main run
+            and of one bfloat16 prefill.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, one
 JSON line describing every kernel of the path, and the result line.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -55,6 +77,19 @@ SCALE = dict(scenario="exponential", n=10000, seeds=1024, K=200, m=100)
 # and wider rows than the simulator's
 SHAPES = ((128, 1000), (1024, 10000), (32, 10000), (4, 100000))
 PATH_MS = {MAIN["m"], SAMPLED["m"], SCALE["m"]}
+
+ARCH = "rwkv6-3b"
+PREFILL = dict(batch=2, seq=4096, seed=0)
+SERVE = dict(prompts=(16, 40, 64, 65, 96, 130), batch_size=4, new_tokens=16,
+             seed=1)
+# the scan's heads and head size at full width
+RWKV_H, RWKV_K = 40, 64
+RWKV_TOL = 2e-4          # max |y - y64| / max |y64|, and for the state
+LOGITS_TOL = 1e-4        # rel L2 of float32 logits, kernel against plain
+BF16_FACTOR = 1.5        # bf16: kernel error vs f32 <= 1.5 x plain's own
+# a first token must equal the prefill's argmax where the top-2 gap of
+# the prefill logits exceeds this share of their largest magnitude
+TOP2_MARGIN = 1e-3
 
 
 def emit(obj):
@@ -160,6 +195,40 @@ def _assert_equal_to_plain(x, m, what):
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
+def _assert_equal_by_value(x, m, what):
+    """``mth_smallest`` equal to ``sort(x)[:, m-1]`` by value, with NaN in
+    the same rows: the order contract on signed zeros and NaN. The sort
+    runs on the CPU: on the card, ``torch.sort`` of rows of 1000 or more
+    puts a sign-set NaN first, not last."""
+    import torch
+
+    from repro_torch.kernels import order_stats as ost
+    got = ost.mth_smallest(x, m).cpu()
+    want = torch.sort(x.cpu(), dim=1).values[:, m - 1]
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan])):
+        raise AssertionError(f"mth_smallest differs from sort by value at "
+                             f"{what} {tuple(x.shape)} {x.dtype} m={m}")
+
+
+def _signed_zero_nan_rows(S, n, dtype, gen):
+    """Small integers with about a fifth of the entries -0.0 and a tenth
+    NaN of either sign, and a row of nothing but -0.0 and NaN."""
+    import torch
+    dev = "cuda"
+    x = torch.randint(-3, 4, (S, n), generator=gen, device=dev).to(dtype)
+    pick = torch.rand((S, n), generator=gen, device=dev)
+    sign = torch.where(torch.rand((S, n), generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0).to(dtype)
+    x = torch.where(pick < 0.2, torch.tensor(-0.0, dtype=dtype, device=dev),
+                    x)
+    x = torch.where(pick > 0.9, torch.copysign(
+        torch.tensor(float("nan"), dtype=dtype, device=dev), sign), x)
+    x[0] = torch.where(pick[0] < 0.5, -0.0, float("nan")).to(dtype)
+    return x
+
+
 def _cases(S, n, dtype, gen):
     """Uniform finish times, tie-heavy integer rows, rows of workers that
     never finish (+inf), and the first round of exponential times, on
@@ -190,6 +259,16 @@ def phase_kernel():
             for name, x in cases.items():
                 for m in ms:
                     max_err = max(max_err, _assert_equal_to_plain(x, m, name))
+            signed = _signed_zero_nan_rows(S, n, dtype, gen)
+            for m in ms:
+                _assert_equal_by_value(signed, m, "signed zeros and NaN")
+            # recorded, not required: whether the card's own sort orders
+            # these rows as the CPU's does
+            on_card = torch.sort(signed, dim=1).values.cpu()
+            on_cpu = torch.sort(signed.cpu(), dim=1).values
+            card_sort_as_cpu = bool(
+                torch.equal(torch.isnan(on_card), torch.isnan(on_cpu))
+                and torch.equal(on_card.nan_to_num(), on_cpu.nan_to_num()))
             x = cases["uniform"]
             m = SCALE["m"] if (S, n) == (SCALE["seeds"], SCALE["n"]) \
                 else MAIN["m"]
@@ -206,6 +285,8 @@ def phase_kernel():
                    "dtype": str(dtype).replace("torch.", ""), "m": m,
                    "cases": sorted(cases), "ms_checked": ms,
                    "bitwise_equal": True,
+                   "equal_by_value_on": "signed zeros and NaN",
+                   "card_sort_as_cpu_on_them": card_sort_as_cpu,
                    "max_abs_err": max_err,
                    "kernel_ms": sum(runs["kernel"]) / 2,
                    "plain_ms": sum(runs["plain"]) / 2,
@@ -352,30 +433,335 @@ def phase_scale():
           "total_time_mean": float(tt.mean())})
 
 
-def phase_profile():
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _rwkv_inputs(B, T, dtype, gen):
+    """Scan inputs at full head width: r, k, v normal in ``dtype``; decays
+    ``w = exp(-exp(x))`` with x uniform on [-8, 1], the model's clip, so w
+    spans [exp(-e), exp(-e^-8)], and head 0 held at exactly exp(-e);
+    ``u`` as the model draws it."""
+    import torch
+    shape = (B, T, RWKV_H, RWKV_K)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    x = torch.rand(shape, generator=gen, device="cuda") * 9.0 - 8.0
+    w = torch.exp(-torch.exp(x))
+    w[:, :, 0] = math.exp(-math.e)
+    u = 0.1 * torch.randn((RWKV_H, RWKV_K), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def _hold_rwkv_to_f64(r, k, v, w, u, what):
+    """The kernel against the float64 step recurrence on the same
+    (rounded) inputs; returns the relative errors of y and of the state,
+    and y's largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import rwkv_scan as rs
+    y, s = rs.rwkv_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    y64, s64 = rs.rwkv_scan_plain(*(a.double() for a in (r, k, v, w, u)))
+    err_y = float((y.double() - y64).abs().max() / y64.abs().max())
+    err_s = float((s.double() - s64).abs().max() / s64.abs().max())
+    if not (err_y <= RWKV_TOL and err_s <= RWKV_TOL):
+        raise AssertionError(f"rwkv_scan off the float64 recurrence at {what}"
+                             f" {tuple(r.shape)} {r.dtype}: y {err_y}, "
+                             f"state {err_s}")
+    return err_y, err_s, float((y.double() - y64).abs().max())
+
+
+def rwkv_bound_ms(B, T, H, K, in_bytes):
+    """Least time for one scan: r, k, v (``in_bytes`` each) and w, u read
+    once and y, state written once at the memory rate, or the float32
+    operations of the kernel's chunked form (16-token chunks, FMA = 2)
+    at the float32 rate, whichever is larger. Exponentials and logs,
+    which run on the special-function units, are not counted."""
+    C = 16
+    chunks = -(-T // C)
+    per_chunk = (2 * C * K                              # decayed r and k
+                 + C * (C - 1) // 2 * K * 4 + C * K * 3  # intra weights
+                 + C * K * (2 * K + 2 * C)               # outputs
+                 + K * K * (1 + 2 * C))                  # state
+    ops = B * H * chunks * per_chunk
+    nbytes = (B * T * H * K * (3 * in_bytes + 4 + 4) + H * K * 4
+              + B * H * K * K * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def phase_rwkv_kernel():
+    import torch
+
+    from repro_torch.kernels import rwkv_scan as rs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    # (B, T, input dtypes): the prefill phase's shape, every serve prompt
+    # (the serve phase runs in float32) and the edge lengths
+    shapes = [(B, S, (torch.bfloat16, torch.float32))]
+    shapes += [(1, P, (torch.float32,)) for P in SERVE["prompts"]]
+    shapes += [(1, T, (torch.bfloat16, torch.float32))
+               for T in (1, 63, 65, 4096)]
+    checked, max_abs = [], 0.0
+    for Bx, T, dtypes in shapes:
+        for dtype in dtypes:
+            r, k, v, w, u = _rwkv_inputs(Bx, T, dtype, gen)
+            ey, es, ab = _hold_rwkv_to_f64(r, k, v, w, u, "the kernel phase")
+            max_abs = max(max_abs, ab)
+            checked.append([Bx, T, str(dtype).replace("torch.", ""), ey, es])
+    # B*H = 1: one head of one sequence
+    r, k, v, w, u = _rwkv_inputs(1, 65, torch.float32, gen)
+    one = [a[:, :, :1].contiguous() for a in (r, k, v, w)] + [u[:1]]
+    ey, es, ab = _hold_rwkv_to_f64(*one, "one head")
+    checked.append([1, 65, "float32, H=1", ey, es])
+    max_abs = max(max_abs, ab)
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v, w, u = _rwkv_inputs(B, S, dtype, gen)
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = {"plain": lambda: rs.rwkv_scan_plain(r, k, v, w, u),
+                  "kernel": lambda: rs.rwkv_scan(r, k, v, w, u)}[which]
+            runs[which].append(cuda_ms(fn, 20 if which == "kernel" else 2))
+        bnd, by = rwkv_bound_ms(B, S, RWKV_H, RWKV_K, r.element_size())
+        name = str(dtype).replace("torch.", "")
+        timing[name] = {"kernel_ms": sum(runs["kernel"]) / 2,
+                        "plain_ms": sum(runs["plain"]) / 2,
+                        "runs_ms": runs, "bound_ms": bnd, "bound_by": by}
+    rec = {"phase": "rwkv_kernel", "tolerance": RWKV_TOL,
+           "checked_B_T_dtype_erry_errs": checked, "max_abs_err": max_abs,
+           "shape": [B, S, RWKV_H, RWKV_K], "timing": timing,
+           "timing_method": "CUDA events, host ahead of the card, mean of "
+                            "2 x 20 kernel calls and 2 x 2 plain calls"}
+    emit(rec)
+    return rec
+
+
+def _count_launches():
+    from repro_torch.kernels import order_stats as ost
+    from repro_torch.kernels import rwkv_scan as rs
+    return {**ost.launch_counts, **rs.launch_counts}
+
+
+def _reset_launches():
+    from repro_torch.kernels import order_stats as ost
+    from repro_torch.kernels import rwkv_scan as rs
+    ost.reset_launch_counts()
+    rs.reset_launch_counts()
+
+
+class _RecordScans:
+    """Within the block, the prefill's scan calls also keep their inputs
+    for the layers in ``layers``; the kernel runs as usual."""
+
+    def __init__(self, layers):
+        self.layers, self.calls, self.kept = set(layers), 0, {}
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self._scan = ssm.rwkv_scan
+
+        def record(*args):
+            if self.calls in self.layers:
+                self.kept[self.calls] = args
+            self.calls += 1
+            return self._scan(*args)
+
+        ssm.rwkv_scan = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm.rwkv_scan = self._scan
+
+
+def _full_width_params():
+    """``rwkv6-3b`` in bfloat16 with the port's init from a seed, and the
+    same weights in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import build_model, get_config
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(PREFILL["seed"])
+    bf16 = build_model(cfg)
+    params = bf16.init_params(gen)
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _map_tree(params, lambda t: t.float())
+    return bf16, params, f32, params32
+
+
+def _map_tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _map_tree(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_tree(v, fn) for v in node]
+    return fn(node)
+
+
+def phase_rwkv_prefill(models):
+    import torch
+    bf16, params, f32, params32 = models
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(PREFILL["seed"] + 1)
+    tokens = torch.randint(0, bf16.cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    out, launches = {}, None
+    with torch.inference_mode():
+        for name, model, p in (("bfloat16", bf16, params),
+                               ("float32", f32, params32)):
+            # warm-up, keeping the first and last layers' scan inputs
+            last = model.cfg.num_layers - 1
+            with _RecordScans((0, last)) as rec:
+                model.prefill(p, tokens)
+            errs = [_hold_rwkv_to_f64(*rec.kept[i], f"the {name} prefill's "
+                                      f"layer {i}")[:2] for i in (0, last)]
+            del rec
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            logits = model.prefill(p, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _count_launches()
+            if counts["rwkv_scan"] != model.cfg.num_layers:
+                raise AssertionError(f"expected one scan launch per layer, "
+                                     f"{counts}")
+            if name == "bfloat16":
+                launches = counts["rwkv_scan"]
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            plain = model.prefill(p, tokens, impl="ref")
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+            if not (logits.shape == (B, model.cfg.vocab_size)
+                    and torch.isfinite(logits).all()):
+                raise AssertionError(f"bad {name} prefill logits")
+            out[name] = {"logits": logits.float(), "plain": plain.float(),
+                         "rec": {"wall_s": wall, "tokens_per_s": B * S / wall,
+                                 "plain_wall_s": plain_wall,
+                                 "peak_mem_bytes": peak, "launches": counts,
+                                 "layers_0_and_last_err_y_state": errs}}
+    ref = out["float32"]["plain"]
+    err32 = _rel_l2(out["float32"]["logits"], ref)
+    same_argmax = bool(torch.equal(out["float32"]["logits"].argmax(-1),
+                                   ref.argmax(-1)))
+    if not (err32 <= LOGITS_TOL and same_argmax):
+        raise AssertionError(f"float32 prefill: kernel vs plain rel L2 "
+                             f"{err32}, argmax equal {same_argmax}")
+    err_k = _rel_l2(out["bfloat16"]["logits"], ref)
+    err_p = _rel_l2(out["bfloat16"]["plain"], ref)
+    if not err_k <= BF16_FACTOR * err_p:
+        raise AssertionError(f"bfloat16 prefill: kernel off float32 by "
+                             f"{err_k}, plain by {err_p}")
+    emit({"phase": "rwkv_prefill", "arch": ARCH, **PREFILL,
+          "params": bf16.cfg.param_count(),
+          "bfloat16": out["bfloat16"]["rec"],
+          "float32": out["float32"]["rec"],
+          "f32_kernel_vs_plain_rel_l2": err32, "f32_argmax_equal": same_argmax,
+          "bf16_kernel_vs_f32_rel_l2": err_k,
+          "bf16_plain_vs_f32_rel_l2": err_p})
+    return launches
+
+
+def phase_rwkv_serve(models):
+    import numpy as np
+    import torch
+
+    from repro_torch import Request, ServeEngine
+    _, _, f32, params32 = models
+    rng = np.random.default_rng(SERVE["seed"])
+    reqs = [Request(prompt=rng.integers(0, f32.cfg.vocab_size, size=P),
+                    max_new_tokens=SERVE["new_tokens"])
+            for P in SERVE["prompts"]]
+    engine = ServeEngine(f32, params32, batch_size=SERVE["batch_size"])
+    _reset_launches()
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine_launches = _count_launches()["rwkv_scan"]
+    worst, compared = 0.0, 0
+    with torch.inference_mode():
+        for req in reqs:
+            if not (req.done and len(req.out_tokens) == SERVE["new_tokens"]):
+                raise AssertionError("a request did not finish")
+            want = f32.prefill(params32, torch.tensor(
+                req.prompt[None], device="cuda"))[0].float().cpu()
+            err = _rel_l2(req.first_logits, want)
+            worst = max(worst, err)
+            if not err <= LOGITS_TOL:
+                raise AssertionError(f"engine logits off the kernel prefill "
+                                     f"by {err} at prompt {len(req.prompt)}")
+            top2 = torch.topk(want, 2).values
+            if top2[0] - top2[1] > TOP2_MARGIN * want.abs().max():
+                compared += 1
+                if req.out_tokens[0] != int(want.argmax()):
+                    raise AssertionError("first token differs from the "
+                                         "prefill's argmax")
+    new = sum(len(r.out_tokens) for r in reqs)
+    emit({"phase": "rwkv_serve", "arch": ARCH, "dtype": "float32", **SERVE,
+          "wall_s": wall, "new_tokens_per_s": new / wall,
+          "decode_steps": sum(len(r.prompt) - 1 for r in reqs) + new,
+          "engine_scan_launches": engine_launches,
+          "prefill_scan_launches": _count_launches()["rwkv_scan"],
+          "max_rel_l2_vs_prefill": worst,
+          "first_tokens_checked": compared, "top2_margin": TOP2_MARGIN})
+
+
+def _profiled(fn):
+    """Wall time, device-busy time and top device kernels of one call of
+    ``fn`` under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.exp import run_experiment
-    K = 200
-    kw = dict(n=MAIN["n"], K=K, seeds=MAIN["seeds"], device="cuda")
-    run_experiment(("msync", {"m": MAIN["m"]}), MAIN["scenario"], **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_experiment(("msync", {"m": MAIN["m"]}), MAIN["scenario"], **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "profile", "scenario": MAIN["scenario"], "K": K,
-          "wall_s": wall, "device_busy_s": busy_us * 1e-6,
-          "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
-          "top_kernels_us": [[e.key[:90], e.self_device_time_total,
-                              e.count] for e in top]})
+    return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
+            "device_busy_share": busy_us * 1e-6 / wall if busy_us else None,
+            "top_kernels_us": [[e.key[:90], e.self_device_time_total,
+                                e.count] for e in top]}
+
+
+def phase_profile(models):
+    import torch
+
+    from repro_torch.exp import run_experiment
+    K = 200
+    kw = dict(n=MAIN["n"], K=K, seeds=MAIN["seeds"], device="cuda")
+
+    def main_run():
+        run_experiment(("msync", {"m": MAIN["m"]}), MAIN["scenario"], **kw)
+
+    main_run()
+    emit({"phase": "profile", "path": "main", "scenario": MAIN["scenario"],
+          "K": K, **_profiled(main_run)})
+    bf16, params = models[:2]
+    gen = torch.Generator(device="cuda").manual_seed(PREFILL["seed"] + 2)
+    tokens = torch.randint(0, bf16.cfg.vocab_size,
+                           (PREFILL["batch"], PREFILL["seq"]),
+                           generator=gen, device="cuda")
+
+    def prefill():
+        with torch.inference_mode():
+            bf16.prefill(params, tokens)
+
+    prefill()
+    emit({"phase": "profile", "path": "rwkv_prefill", "arch": ARCH,
+          "dtype": "bfloat16", **PREFILL, **_profiled(prefill)})
 
 
 def main():
@@ -387,10 +773,14 @@ def main():
     name = phase_device()
     phase_build()
     kernel = phase_kernel()
+    rwkv = phase_rwkv_kernel()
     launches, _ = phase_main()
     phase_sampled()
     phase_scale()
-    phase_profile()
+    models = _full_width_params()
+    rwkv_launches = phase_rwkv_prefill(models)
+    phase_rwkv_serve(models)
+    phase_profile(models)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -399,6 +789,7 @@ def main():
     print(smi, flush=True)
     at = kernel[(MAIN["seeds"], MAIN["n"], "float32")]
     max_err = max(rec["max_abs_err"] for rec in kernel.values())
+    bf = rwkv["timing"]["bfloat16"]
     emit({"kernels": [{
         "name": "mth_smallest", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/order_stats.cu",
@@ -406,7 +797,19 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": at["kernel_ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-        "library_ms": at["library_ms"]}]})
+        "library_ms": at["library_ms"],
+        "path": "main: run_experiment, one launch per round"}, {
+        "name": "rwkv_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+        "replaces": "src/repro/kernels/rwkv_scan.py:73",
+        "launches": rwkv_launches, "max_abs_err": rwkv["max_abs_err"],
+        "ms": bf["kernel_ms"], "plain_ms": bf["plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this scan",
+        "shape": rwkv["shape"], "dtype": "bfloat16",
+        "path": "rwkv_prefill: Model.prefill of rwkv6-3b, B=2, S=4096, "
+                "bfloat16, one launch per layer"}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,0 +1,206 @@
+"""Config system of the port: composable model configuration, as data.
+
+The port's own copy of ``src/repro/configs/base.py``; the port imports
+nothing of the JAX package. A model is a sequence of *stages*; each stage
+is a repeated *pattern* of blocks (``attn``/``mamba``/``rwkv``), each
+paired with a feed-forward kind (``mlp``/``moe``/``none``). The port runs
+a stage's repeats as a loop over layers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["AttnConfig", "MoEConfig", "SSMConfig", "Block", "Stage",
+           "EncoderConfig", "ModelConfig", "reduced"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: Optional[float] = 10000.0   # None => learned/none (whisper)
+    causal: bool = True
+    sliding_window: Optional[int] = None    # tokens; None => full attention
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    experts_per_token: int
+    d_expert: int                  # per-expert FFN hidden size
+    num_shared_experts: int = 0
+    d_shared: int = 0              # shared-expert FFN hidden size
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # 2D expert-weight sharding: experts over `model`, FFN dim over the dp
+    # axes (FSDP-style storage, gathered per layer). Required when total
+    # expert params exceed model-axis-only capacity (kimi-k2 1T).
+    shard_experts_2d: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba"            # "mamba" | "rwkv6"
+    d_state: int = 16              # mamba N
+    d_inner_mult: int = 2          # mamba expansion
+    conv_width: int = 4
+    head_dim: int = 64             # rwkv6 head size
+    dt_rank: int = 0               # 0 => d_model // 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """One transformer block: a mixer plus a feed-forward."""
+    mixer: str                     # "attn" | "mamba" | "rwkv" | "cross"
+    ff: str = "mlp"                # "mlp" | "moe" | "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    pattern: Tuple[Block, ...]
+    repeats: int = 1
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.pattern) * self.repeats
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder for enc-dec models (whisper). Frontend is a stub: the input
+    is precomputed frame embeddings of shape (B, frontend_len, d_model)."""
+    stages: Tuple[Stage, ...]
+    frontend_len: int = 1500       # whisper 30s @ 50 Hz after conv stub
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                  # dense|moe|ssm|hybrid|vlm|audio
+    d_model: int
+    vocab_size: int
+    d_ff: int
+    stages: Tuple[Stage, ...]
+    attn: AttnConfig
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None   # audio enc-dec
+    vision_tokens: int = 0          # VLM stub: patch embeddings prepended
+    pos_embed: str = "none"         # "none" | "learned"
+    mlp_act: str = "swiglu"         # "swiglu" | "gelu"
+    norm: str = "rmsnorm"           # "rmsnorm" | "layernorm"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"         # activation / param dtype
+    max_seq_len: int = 8192
+    citation: str = ""
+
+    @property
+    def num_layers(self) -> int:
+        return sum(s.num_layers for s in self.stages)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for s in self.stages:
+            for b in s.pattern:
+                total += s.repeats * _block_params(self, b)
+        if self.encoder is not None:
+            for s in self.encoder.stages:
+                for b in s.pattern:
+                    total += s.repeats * _block_params(self, b)
+        return total
+
+
+def _block_params(cfg: ModelConfig, b: Block) -> int:
+    d = cfg.d_model
+    n = 0
+    if b.mixer in ("attn", "cross"):
+        a = cfg.attn
+        qkv = d * a.num_heads * a.head_dim + 2 * d * a.num_kv_heads * a.head_dim
+        o = a.num_heads * a.head_dim * d
+        n += qkv + o
+        if b.mixer == "cross":
+            n += qkv + o   # separate cross-attention projections
+    elif b.mixer == "mamba":
+        s = cfg.ssm
+        din = s.d_inner_mult * d
+        dt_rank = s.dt_rank or d // 16
+        n += d * 2 * din            # in_proj (x and gate)
+        n += din * s.conv_width     # conv1d
+        n += din * (dt_rank + 2 * s.d_state) + dt_rank * din  # dt/B/C proj
+        n += din * s.d_state + din  # A, D
+        n += din * d                # out_proj
+    elif b.mixer == "rwkv":
+        n += 6 * d * d              # r,k,v,g,w,o projections (+ small mixes)
+    if b.ff == "mlp":
+        mult = 3 if cfg.mlp_act == "swiglu" else 2
+        n += mult * d * cfg.d_ff
+    elif b.ff == "moe":
+        m = cfg.moe
+        mult = 3 if cfg.mlp_act == "swiglu" else 2
+        per_expert = mult * d * m.d_expert
+        n += m.num_experts * per_expert
+        n += m.num_shared_experts * mult * d * m.d_shared
+        n += d * m.num_experts      # router
+    n += 2 * d                      # norms
+    return n
+
+
+def reduced(cfg: ModelConfig, d_model: int = 128, layers_per_stage: int = 1,
+            max_experts: int = 4, vocab: int = 512) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests (2 layers, d<=512,
+    <=4 experts), preserving the block pattern and ff kinds."""
+    if d_model > 512:
+        raise ValueError(f"d_model={d_model} above the reduced limit 512")
+    a = cfg.attn
+    heads = max(2, min(4, a.num_heads))
+    kv = 1 if a.num_kv_heads == 1 else max(1, min(2, a.num_kv_heads))
+    attn = dataclasses.replace(
+        a, num_heads=heads, num_kv_heads=kv, head_dim=d_model // heads)
+    moe = None
+    if cfg.moe is not None:
+        m = cfg.moe
+        moe = dataclasses.replace(
+            m, num_experts=min(m.num_experts, max_experts),
+            experts_per_token=min(m.experts_per_token, 2),
+            d_expert=d_model, d_shared=d_model if m.num_shared_experts else 0,
+            num_shared_experts=min(m.num_shared_experts, 1),
+            # no token drops in the reduced variant so decode == forward
+            # exactly (the full configs keep the production 1.25 factor)
+            capacity_factor=float(2 * max_experts))
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = dataclasses.replace(ssm, d_state=8, head_dim=32)
+    def _shrink_pattern(pattern):
+        # keep one block per distinct (mixer, ff) kind, preserving order —
+        # the reduced model exercises every layer *family* in <=3 blocks
+        seen, out = set(), []
+        for b in pattern:
+            key = (b.mixer, b.ff)
+            if key not in seen:
+                seen.add(key)
+                out.append(b)
+        return tuple(out[:4])
+
+    stages = tuple(
+        Stage(pattern=_shrink_pattern(s.pattern),
+              repeats=min(s.repeats, layers_per_stage))
+        for s in cfg.stages)
+    # keep total depth tiny: at most 2 stages
+    stages = stages[:2]
+    enc = cfg.encoder
+    if enc is not None:
+        enc = EncoderConfig(
+            stages=tuple(Stage(s.pattern, min(s.repeats, 1))
+                         for s in enc.stages[:1]),
+            frontend_len=16)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-reduced", d_model=d_model, vocab_size=vocab,
+        d_ff=2 * d_model, stages=stages, attn=attn, moe=moe, ssm=ssm,
+        encoder=enc, vision_tokens=min(cfg.vision_tokens, 4),
+        dtype="float32", max_seq_len=512)

@@ -3,8 +3,9 @@
 The kernels are compiled at first use with
 :func:`torch.utils.cpp_extension.load` for ``sm_90a`` (Hopper) into
 ``kernels/build/`` beside this file, which ``.gitignore`` lists. Only
-the small binding file includes PyTorch's headers; the ``.cu`` sources
-expose plain C++ launchers, which keeps the build short.
+the small binding file ``csrc/binding.cpp`` includes PyTorch's headers;
+the ``.cu`` sources expose plain C++ launchers, which keeps the build
+short. Every kernel lives in the one extension module.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "extension"]
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "build"
 SOURCES = (_HERE / "csrc" / "order_stats.cu",
-           _HERE / "csrc" / "order_stats_binding.cpp")
+           _HERE / "csrc" / "rwkv_scan.cu",
+           _HERE / "csrc" / "binding.cpp")
 _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 

@@ -23,9 +23,10 @@
 //
 // The comparisons are integer comparisons of keys, so there is no
 // flush-to-zero question: subnormals and +inf (a worker that never finishes)
-// order exactly as IEEE-754 does.
+// order exactly as IEEE-754 does. Signed zeros compare equal and NaN sorts
+// last, as in torch.sort (see to_key).
 //
-// The file includes no PyTorch header: the binding in order_stats_binding.cpp
+// The file includes no PyTorch header: the binding in binding.cpp
 // calls the two launchers below.
 
 #include <cstdint>
@@ -36,13 +37,22 @@ namespace {
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 
+// The key orders as torch.sort does: -0.0 takes the key of +0.0, and every
+// NaN, whatever its sign and payload, takes the key of the canonical quiet
+// NaN, which lies above the key of +inf. So a selected zero comes back as
+// +0.0 and a selected NaN as the canonical quiet NaN.
 __device__ __forceinline__ uint32_t to_key(float v) {
   uint32_t u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffc00000u;  // NaN
+  if ((u << 1) == 0u) u = 0u;                                // -0.0
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 __device__ __forceinline__ uint64_t to_key(double v) {
   uint64_t u = static_cast<uint64_t>(__double_as_longlong(v));
+  if ((u & 0x7fffffffffffffffull) > 0x7ff0000000000000ull)  // NaN
+    return 0xfff8000000000000ull;
+  if ((u << 1) == 0ull) u = 0ull;                            // -0.0
   return (u & 0x8000000000000000ull) ? ~u : (u | 0x8000000000000000ull);
 }
 

@@ -10,6 +10,15 @@ order-preserving integer key of each float) for a CUDA tensor, and uses
 Tie semantics as in the reference: the statistic counts multiplicity,
 ``mth_smallest(x, m) == sort(x)[..., m-1]``, and it is always an element
 of ``x``.
+
+The order is ``torch.sort``'s on the CPU: -0.0 and +0.0 are equal, and
+NaN, of either sign, sorts after +inf. On the card the result equals
+that ``sort(x)[..., m-1]`` by value, with NaN in the same rows; a
+selected zero comes back as +0.0, and a selected NaN as the canonical
+quiet NaN. (``torch.sort`` on the card puts a sign-set NaN first in rows
+of 1000 or more, so it is not the yardstick for such rows.)
+On rows with no -0.0 and no NaN it is bitwise the element
+``sort`` picks.
 """
 
 from __future__ import annotations

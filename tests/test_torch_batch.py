@@ -36,7 +36,7 @@ from repro.core import batch_jax
 from repro.core.batch_jax import quadratic_worst_case_jax
 from repro_torch import simulate_batch
 from repro_torch.convert import time_model_from
-from repro_torch.core import batch_torch
+from repro_torch.core import batch_torch, time_models
 from repro_torch.core.oracle import quadratic_worst_case_torch
 from repro_torch.core.time_models import FixedTimes, exponential_times
 
@@ -107,16 +107,70 @@ def test_fixed_timing_f64_matches_x64_reference(tmp_path):
         print(json.dumps([[t.total_time, t.gradients_computed]
                           for t in tb.traces[0]]))
     """)
+    want = _x64_reference(code)
+    got = simulate_batch(("msync", {"m": m}), FixedTimes(taus), K, seeds=S,
+                         device="cpu", dtype=torch.float64)
+    assert [[t.total_time, t.gradients_computed]
+            for t in got.traces[0]] == want
+
+
+def _x64_reference(code):
+    """Run ``code`` in a subprocess with ``JAX_ENABLE_X64=1`` and return
+    the JSON on the last line of its output."""
     env = {**os.environ, "JAX_ENABLE_X64": "1", "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    want = json.loads(proc.stdout.strip().splitlines()[-1])
-    got = simulate_batch(("msync", {"m": m}), FixedTimes(taus), K, seeds=S,
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+UNIVERSAL_X64 = {
+    "fig4": ("powers_figure4", dict(n=24, seed=5, t_max=60.0)),
+    "partial": ("PartialParticipationModel",
+                dict(n=24, p=0.25, period=2.0, t_max=60.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNIVERSAL_X64))
+def test_universal_timing_per_round_f64_matches_x64_reference(case):
+    """Every round's T and every seed's gradient count of Fig 4 and of
+    partial participation, in float64, against the reference run with
+    JAX_ENABLE_X64=1: its round scan (``_general_run``, the function
+    ``simulate_batch`` runs) per round, and ``simulate_batch`` itself,
+    on the jax engine with no downgrade, at the end."""
+    factory, kw = UNIVERSAL_X64[case]
+    n, S, K, m = kw["n"], 3, 120, 7
+    code = textwrap.dedent(f"""
+        import json, numpy as np, jax
+        assert jax.config.jax_enable_x64
+        from repro.core import simulate_batch, time_models
+        from repro.core.batch_jax import _general_run
+        model = time_models.{factory}(**{kw!r})
+        tb = simulate_batch(("msync", {{"m": {m}}}), model, {K},
+                            seeds={S}, backend="jax")
+        assert tb.backend == "jax"
+        assert not any("downgrades" in r for r in tb.routing)
+        comp, _, T, _, _ = _general_run(model, None, {m}, {n}, {S}, {K},
+                                        0.0, False, list(range({S})))
+        assert np.asarray(T).dtype == np.float64
+        print(json.dumps({{
+            "T": np.asarray(T).tolist(), "comp": np.asarray(comp).tolist(),
+            "end": [[t.total_time, t.gradients_computed]
+                    for t in tb.traces[0]]}}))
+    """)
+    want = _x64_reference(code)
+    model = getattr(time_models, factory)(**kw)
+    comp, _, T, _, _ = batch_torch._general_run(
+        model, None, m, n, S, K, 0.0, list(range(S)), device="cpu",
+        dtype=torch.float64)
+    np.testing.assert_allclose(T.numpy(), np.array(want["T"]), rtol=1e-12)
+    assert comp.tolist() == want["comp"]
+    got = simulate_batch(("msync", {"m": m}), model, K, seeds=S,
                          device="cpu", dtype=torch.float64)
-    assert [[t.total_time, t.gradients_computed]
-            for t in got.traces[0]] == want
+    for (total, count), tr in zip(want["end"], got.traces[0]):
+        np.testing.assert_allclose(tr.total_time, total, rtol=1e-12)
+        assert tr.gradients_computed == count
 
 
 def _replay_reference_draws(sampler, seeds, K, B=None):

@@ -35,6 +35,8 @@ def test_no_jax_or_reference_import(path):
 def test_the_check_sees_the_package():
     names = {p.name for p in FILES}
     assert {"order_stats.py", "batch_torch.py", "runner.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "rwkv_scan.py", "ssm.py", "layers.py",
+            "transformer.py", "model.py", "engine.py", "registry.py",
+            "rwkv6_3b.py", "convert.py"} <= names
     assert _banned("repro.core") and _banned("jax.numpy")
     assert not _banned("repro_torch.core")
