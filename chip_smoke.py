@@ -45,12 +45,31 @@ phase ends the run with a nonzero exit code and no result line:
             token was sampled from against ``Model.prefill`` of the prompt
             on the kernel path;
 10. profile  device-busy share and top device kernels of a short main run
-            and of one bfloat16 prefill.
+            and of one bfloat16 prefill;
+11. attn_kernel  the ``flash_attention`` kernel held to its plain version
+            in float64 at every shape the llama phases below hand it and at
+            S=1, 63, 65, 129, head sizes 32 and 64, without the causal
+            mask, windows of 1, 64 and 1000, Sq != Sk with rows that see no
+            key (zeros), GQA groups 1 and 3; bfloat16 and float32; timed
+            beside its plain version, ``scaled_dot_product_attention`` (one
+            library call, timed only) and its bounds;
+12. llama_prefill  ``Model.prefill`` of ``llama3.2-3b`` at full width
+            (random weights from a seed), B=2, S=4096, bfloat16 and
+            float32: wall time, tokens/s, peak memory, 28 kernel launches,
+            the kernel held to the float64 plain version on the first and
+            last layers' own q, k, v, and the logits against the same
+            prefill with the reference's ref branch (``impl="ref"``);
+13. llama_serve  ``ServeEngine.generate`` (float32, 4 slots, greedy, 16 new
+            tokens, max_len 256) on 6 prompts of 16-130 tokens, against
+            ``Model.prefill`` of each prompt on the kernel path;
+14. profile  the same for one bfloat16 llama prefill.
 
-Then the card's name and power limit as ``nvidia-smi`` prints them, one
-JSON line describing every kernel of the path, and the result line.
+The RWKV model is freed before the llama phases. Then the card's name and
+power limit as ``nvidia-smi`` prints them, one JSON line describing every
+kernel of the paths, and the result line.
 """
 
+import gc
 import json
 import math
 import os
@@ -65,9 +84,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM: memory rate and float32 rate outside the tensor cores
+# H100 SXM: memory rate, float32 rate outside the tensor cores and the
+# dense bfloat16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 MAIN = dict(scenario="fixed_sqrt", n=1000, seeds=128, K=2000, m=32)
 SAMPLED = dict(scenario="exponential", n=1000, seeds=128, K=500, m=32,
@@ -81,7 +102,7 @@ PATH_MS = {MAIN["m"], SAMPLED["m"], SCALE["m"]}
 ARCH = "rwkv6-3b"
 PREFILL = dict(batch=2, seq=4096, seed=0)
 SERVE = dict(prompts=(16, 40, 64, 65, 96, 130), batch_size=4, new_tokens=16,
-             seed=1)
+             max_len=512, seed=1)
 # the scan's heads and head size at full width
 RWKV_H, RWKV_K = 40, 64
 RWKV_TOL = 2e-4          # max |y - y64| / max |y64|, and for the state
@@ -90,6 +111,19 @@ BF16_FACTOR = 1.5        # bf16: kernel error vs f32 <= 1.5 x plain's own
 # a first token must equal the prefill's argmax where the top-2 gap of
 # the prefill logits exceeds this share of their largest magnitude
 TOP2_MARGIN = 1e-3
+
+LLAMA = "llama3.2-3b"
+LLAMA_SERVE = dict(SERVE, max_len=256)
+# query heads, key/value heads and head size at full width
+ATTN_H, ATTN_KV, ATTN_D = 24, 8, 128
+# max |o - o64| <= tol * max |o64| once each element's rounding to the
+# output type (unit roundoff times |o64|) is taken off: a bfloat16 output
+# alone is up to 2**-8 of an element off. bfloat16 inputs are exact in
+# float32, so what is left past that rounding is the kernel's float32
+# arithmetic, held as tightly as for float32 inputs; a kernel that rounds
+# its scores or weights to bfloat16 has to argue for its own limit
+ATTN_TOL = {"bfloat16": 1e-5, "float32": 2e-5}
+UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
 
 
 def emit(obj):
@@ -540,53 +574,184 @@ def phase_rwkv_kernel():
     return rec
 
 
+def attn_bound_ms(B, Sq, Sk, H, KV, dh, causal, itemsize, ops_per_s):
+    """Least time for one attention: q, k, v read once and o written once
+    at the memory rate, or the products q.k and p.v over the visible
+    (query, key) pairs (4 dh flops a pair) at ``ops_per_s``, whichever is
+    larger."""
+    pairs = (Sq * (Sq + 1) // 2 if causal and Sq == Sk else Sq * Sk)
+    ops = pairs * 4 * dh * B * H
+    nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * dh * itemsize
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def _attn_inputs(B, Sq, Sk, H, KV, dh, dtype, gen):
+    import torch
+    q = torch.randn((B, Sq, H, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, KV, dh), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _hold_attn_to_f64(q, k, v, causal, window, what):
+    """The kernel against its plain version in float64 on the same
+    (rounded) inputs; rows with no valid key must be zeros. Returns the
+    largest error relative to max |o64| before and after each element's
+    rounding to the output type is taken off, and the largest absolute
+    error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    o = fa.flash_attention(q, k, v, causal=causal, window=window,
+                           impl="kernel")
+    torch.cuda.synchronize()
+    o64 = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                   causal=causal, window=window)
+    name = str(q.dtype).replace("torch.", "")
+    diff = (o.double() - o64).abs()
+    top = float(o64.abs().max())
+    raw = float(diff.max()) / top
+    excess = float((diff - UNIT_ROUNDOFF[name] * o64.abs()).max()) / top
+    empty = o64.abs().amax(dim=(0, 2, 3)) == 0
+    if not (excess <= ATTN_TOL[name] and not o[:, empty].any()):
+        raise AssertionError(f"flash_attention off its float64 plain version "
+                             f"at {what} q {tuple(q.shape)} k "
+                             f"{tuple(k.shape)} {name} causal={causal} "
+                             f"window={window}: {raw} ({excess} past the "
+                             f"output's rounding)")
+    return raw, excess, float(diff.max()), int(empty.sum())
+
+
+def phase_attn_kernel():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    H, KV, D = ATTN_H, ATTN_KV, ATTN_D
+    # (B, Sq, Sk, H, KV, dh, causal, window, dtypes): the prefill phase's
+    # shape, every serve prompt's prefill (float32), then the edges
+    cases = [(B, S, S, H, KV, D, True, None, (bf16, f32))]
+    cases += [(1, P, P, H, KV, D, True, None, (f32,))
+              for P in LLAMA_SERVE["prompts"]]
+    cases += [(1, T, T, H, KV, D, True, None, (bf16, f32))
+              for T in (1, 63, 65, 129)]
+    cases += [(2, 129, 129, 4, 2, 32, True, None, (bf16, f32)),
+              (2, 129, 129, 4, 2, 64, True, None, (bf16, f32)),
+              (1, 300, 300, H, KV, D, False, None, (bf16, f32)),
+              (1, 300, 300, H, KV, D, True, 1, (bf16, f32)),
+              (1, 300, 300, H, KV, D, True, 64, (bf16, f32)),
+              (1, 1100, 1100, 4, 2, 64, False, 1000, (bf16, f32)),
+              (1, 200, 70, 6, 2, D, True, 16, (bf16, f32)),   # empty rows
+              (1, 70, 200, 6, 2, D, True, None, (bf16, f32)),
+              (1, 129, 129, 8, 8, D, True, None, (bf16, f32))]  # group 1
+    checked, max_abs, empty_rows = [], 0.0, 0
+    for Bx, Sq, Sk, Hx, KVx, dh, causal, window, dtypes in cases:
+        for dtype in dtypes:
+            q, k, v = _attn_inputs(Bx, Sq, Sk, Hx, KVx, dh, dtype, gen)
+            raw, excess, ab, empty = _hold_attn_to_f64(
+                q, k, v, causal, window, "the kernel phase")
+            max_abs, empty_rows = max(max_abs, ab), empty_rows + empty
+            checked.append([Bx, Sq, Sk, Hx, KVx, dh, causal, window,
+                            str(dtype).replace("torch.", ""), raw, excess])
+    if not empty_rows:
+        raise AssertionError("no case had a row without a valid key")
+    timing = {}
+    for dtype in (bf16, f32):
+        q, k, v = _attn_inputs(B, S, S, H, KV, D, dtype, gen)
+        # the library call takes (B, H, S, dh); the copies are not timed
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        runs = {"plain": [], "kernel": [], "library": []}
+        for which in ("plain", "kernel", "library", "kernel", "plain",
+                      "library"):
+            fn = {"plain": lambda: fa.flash_attention_plain(q, k, v),
+                  "kernel": lambda: fa.flash_attention(q, k, v),
+                  "library": lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True)}[which]
+            runs[which].append(cuda_ms(fn, 2 if which == "plain" else 10))
+        del qt, kt, vt
+        name = str(dtype).replace("torch.", "")
+        tc, tc_by = attn_bound_ms(B, S, S, H, KV, D, True, q.element_size(),
+                                  BF16_TC_OPS_PER_S)
+        fp, fp_by = attn_bound_ms(B, S, S, H, KV, D, True, q.element_size(),
+                                  FP32_OPS_PER_S)
+        timing[name] = {"kernel_ms": sum(runs["kernel"]) / 2,
+                        "plain_ms": sum(runs["plain"]) / 2,
+                        "library_ms": sum(runs["library"]) / 2,
+                        "runs_ms": runs,
+                        "bound_ms_bf16_tensor_cores": tc, "bound_by": tc_by,
+                        "bound_ms_float32_fma": fp,
+                        "bound_by_float32_fma": fp_by}
+    rec = {"phase": "attn_kernel", "tolerance": ATTN_TOL,
+           "unit_roundoff_taken_off": UNIT_ROUNDOFF,
+           "checked_B_Sq_Sk_H_KV_dh_causal_window_dtype_err_excess": checked,
+           "rows_without_a_key_checked_zero": empty_rows,
+           "max_abs_err": max_abs, "shape": [B, S, H, KV, D],
+           "timing": timing,
+           "library": "F.scaled_dot_product_attention(is_causal=True, "
+                      "enable_gqa=True) on (B, H, S, dh) copies",
+           "timing_method": "CUDA events, host ahead of the card, mean of "
+                            "2 x 10 kernel and library calls and 2 x 2 "
+                            "plain calls"}
+    emit(rec)
+    return rec
+
+
 def _count_launches():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import order_stats as ost
     from repro_torch.kernels import rwkv_scan as rs
-    return {**ost.launch_counts, **rs.launch_counts}
+    return {**ost.launch_counts, **rs.launch_counts, **fa.launch_counts}
 
 
 def _reset_launches():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import order_stats as ost
     from repro_torch.kernels import rwkv_scan as rs
     ost.reset_launch_counts()
     rs.reset_launch_counts()
+    fa.reset_launch_counts()
 
 
-class _RecordScans:
-    """Within the block, the prefill's scan calls also keep their inputs
-    for the layers in ``layers``; the kernel runs as usual."""
+class _RecordCalls:
+    """Within the block, the calls a model module makes to one of its
+    kernel wrappers (``module.name``) also keep their arguments for the
+    layers in ``layers``; the kernel runs as usual."""
 
-    def __init__(self, layers):
+    def __init__(self, module, name, layers):
+        self.module, self.name = module, name
         self.layers, self.calls, self.kept = set(layers), 0, {}
 
     def __enter__(self):
-        from repro_torch.models import ssm
-        self._scan = ssm.rwkv_scan
+        self._fn = getattr(self.module, self.name)
 
-        def record(*args):
+        def record(*args, **kwargs):
             if self.calls in self.layers:
-                self.kept[self.calls] = args
+                self.kept[self.calls] = (args, kwargs)
             self.calls += 1
-            return self._scan(*args)
+            return self._fn(*args, **kwargs)
 
-        ssm.rwkv_scan = record
+        setattr(self.module, self.name, record)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import ssm
-        ssm.rwkv_scan = self._scan
+        setattr(self.module, self.name, self._fn)
 
 
-def _full_width_params():
-    """``rwkv6-3b`` in bfloat16 with the port's init from a seed, and the
+def _full_width_params(arch):
+    """``arch`` in bfloat16 with the port's init from a seed, and the
     same weights in float32."""
     import dataclasses
 
     import torch
 
     from repro_torch import build_model, get_config
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(PREFILL["seed"])
     bf16 = build_model(cfg)
     params = bf16.init_params(gen)
@@ -603,7 +768,12 @@ def _map_tree(node, fn):
     return fn(node)
 
 
-def phase_rwkv_prefill(models):
+def _prefill_phase(phase, arch, models, module, kernel, hold):
+    """``Model.prefill`` of ``arch`` at full width, B=2, S=4096, in
+    bfloat16 and float32: wall time, tokens/s, peak memory, one launch of
+    ``kernel`` (called from ``module``) per layer, the kernel held on the
+    first and last layers' own inputs by ``hold``, and the logits against
+    the same prefill on the plain path (``impl="ref"``)."""
     import torch
     bf16, params, f32, params32 = models
     B, S = PREFILL["batch"], PREFILL["seq"]
@@ -614,12 +784,12 @@ def phase_rwkv_prefill(models):
     with torch.inference_mode():
         for name, model, p in (("bfloat16", bf16, params),
                                ("float32", f32, params32)):
-            # warm-up, keeping the first and last layers' scan inputs
+            # warm-up, keeping the first and last layers' kernel inputs
             last = model.cfg.num_layers - 1
-            with _RecordScans((0, last)) as rec:
+            with _RecordCalls(module, kernel, (0, last)) as rec:
                 model.prefill(p, tokens)
-            errs = [_hold_rwkv_to_f64(*rec.kept[i], f"the {name} prefill's "
-                                      f"layer {i}")[:2] for i in (0, last)]
+            errs = [hold(rec.kept[i], f"the {name} prefill's layer {i}")
+                    for i in (0, last)]
             del rec
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -629,11 +799,11 @@ def phase_rwkv_prefill(models):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _count_launches()
-            if counts["rwkv_scan"] != model.cfg.num_layers:
-                raise AssertionError(f"expected one scan launch per layer, "
-                                     f"{counts}")
+            if counts[kernel] != model.cfg.num_layers:
+                raise AssertionError(f"expected one {kernel} launch per "
+                                     f"layer, {counts}")
             if name == "bfloat16":
-                launches = counts["rwkv_scan"]
+                launches = counts[kernel]
             peak = torch.cuda.max_memory_allocated()
             t0 = time.perf_counter()
             plain = model.prefill(p, tokens, impl="ref")
@@ -646,7 +816,7 @@ def phase_rwkv_prefill(models):
                          "rec": {"wall_s": wall, "tokens_per_s": B * S / wall,
                                  "plain_wall_s": plain_wall,
                                  "peak_mem_bytes": peak, "launches": counts,
-                                 "layers_0_and_last_err_y_state": errs}}
+                                 "layers_0_and_last_err": errs}}
     ref = out["float32"]["plain"]
     err32 = _rel_l2(out["float32"]["logits"], ref)
     same_argmax = bool(torch.equal(out["float32"]["logits"].argmax(-1),
@@ -659,7 +829,7 @@ def phase_rwkv_prefill(models):
     if not err_k <= BF16_FACTOR * err_p:
         raise AssertionError(f"bfloat16 prefill: kernel off float32 by "
                              f"{err_k}, plain by {err_p}")
-    emit({"phase": "rwkv_prefill", "arch": ARCH, **PREFILL,
+    emit({"phase": phase, "arch": arch, **PREFILL,
           "params": bf16.cfg.param_count(),
           "bfloat16": out["bfloat16"]["rec"],
           "float32": out["float32"]["rec"],
@@ -669,27 +839,55 @@ def phase_rwkv_prefill(models):
     return launches
 
 
-def phase_rwkv_serve(models):
+def phase_rwkv_prefill(models):
+    from repro_torch.models import ssm
+    return _prefill_phase(
+        "rwkv_prefill", ARCH, models, ssm, "rwkv_scan",
+        lambda kept, what: _hold_rwkv_to_f64(*kept[0], what)[:2])
+
+
+def phase_llama_prefill(models):
+    from repro_torch.models import attention
+
+    def hold(kept, what):
+        (q, k, v), kw = kept
+        return _hold_attn_to_f64(q, k, v, kw["causal"], kw["window"],
+                                 what)[:2]
+
+    return _prefill_phase("llama_prefill", LLAMA, models, attention,
+                          "flash_attention", hold)
+
+
+def _serve_phase(phase, arch, models, kernel, short, serve, engine_zero=None):
+    """``ServeEngine.generate`` in float32: the logits each first token
+    was sampled from against ``Model.prefill`` of the prompt on the kernel
+    path. ``engine_zero``, where given, is why the engine itself launches
+    ``kernel`` no time, which is then checked."""
     import numpy as np
     import torch
 
     from repro_torch import Request, ServeEngine
     _, _, f32, params32 = models
-    rng = np.random.default_rng(SERVE["seed"])
+    rng = np.random.default_rng(serve["seed"])
     reqs = [Request(prompt=rng.integers(0, f32.cfg.vocab_size, size=P),
-                    max_new_tokens=SERVE["new_tokens"])
-            for P in SERVE["prompts"]]
-    engine = ServeEngine(f32, params32, batch_size=SERVE["batch_size"])
+                    max_new_tokens=serve["new_tokens"])
+            for P in serve["prompts"]]
+    engine = ServeEngine(f32, params32, batch_size=serve["batch_size"],
+                         max_len=serve["max_len"])
     _reset_launches()
     t0 = time.perf_counter()
     engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    engine_launches = _count_launches()["rwkv_scan"]
+    engine_launches = _count_launches()[kernel]
+    if engine_zero is not None and engine_launches:
+        raise AssertionError(f"the engine launched {kernel} "
+                             f"{engine_launches} times; expected none: "
+                             f"{engine_zero}")
     worst, compared = 0.0, 0
     with torch.inference_mode():
         for req in reqs:
-            if not (req.done and len(req.out_tokens) == SERVE["new_tokens"]):
+            if not (req.done and len(req.out_tokens) == serve["new_tokens"]):
                 raise AssertionError("a request did not finish")
             want = f32.prefill(params32, torch.tensor(
                 req.prompt[None], device="cuda"))[0].float().cpu()
@@ -705,13 +903,29 @@ def phase_rwkv_serve(models):
                     raise AssertionError("first token differs from the "
                                          "prefill's argmax")
     new = sum(len(r.out_tokens) for r in reqs)
-    emit({"phase": "rwkv_serve", "arch": ARCH, "dtype": "float32", **SERVE,
-          "wall_s": wall, "new_tokens_per_s": new / wall,
-          "decode_steps": sum(len(r.prompt) - 1 for r in reqs) + new,
-          "engine_scan_launches": engine_launches,
-          "prefill_scan_launches": _count_launches()["rwkv_scan"],
-          "max_rel_l2_vs_prefill": worst,
-          "first_tokens_checked": compared, "top2_margin": TOP2_MARGIN})
+    rec = {"phase": phase, "arch": arch, "dtype": "float32", **serve,
+           "wall_s": wall, "new_tokens_per_s": new / wall,
+           "decode_steps": sum(len(r.prompt) - 1 for r in reqs) + new,
+           f"engine_{short}_launches": engine_launches}
+    if engine_zero is not None:
+        rec[f"engine_{short}_launches_expected_0_because"] = engine_zero
+    rec.update({f"prefill_{short}_launches": _count_launches()[kernel],
+                "max_rel_l2_vs_prefill": worst,
+                "first_tokens_checked": compared, "top2_margin": TOP2_MARGIN})
+    emit(rec)
+
+
+def phase_rwkv_serve(models):
+    _serve_phase("rwkv_serve", ARCH, models, "rwkv_scan", "scan", SERVE)
+
+
+def phase_llama_serve(models):
+    _serve_phase(
+        "llama_serve", LLAMA, models, "flash_attention", "flash", LLAMA_SERVE,
+        engine_zero="the engine prefills token by token through "
+                    "Model.decode_step, whose attention is plain masked "
+                    "attention over the KV cache, as in the reference "
+                    "(src/repro/models/attention.py:164-178)")
 
 
 def _profiled(fn):
@@ -736,19 +950,9 @@ def _profiled(fn):
                                 e.count] for e in top]}
 
 
-def phase_profile(models):
+def _profile_prefill(path, arch, models):
+    """Device-busy share and top device kernels of one bfloat16 prefill."""
     import torch
-
-    from repro_torch.exp import run_experiment
-    K = 200
-    kw = dict(n=MAIN["n"], K=K, seeds=MAIN["seeds"], device="cuda")
-
-    def main_run():
-        run_experiment(("msync", {"m": MAIN["m"]}), MAIN["scenario"], **kw)
-
-    main_run()
-    emit({"phase": "profile", "path": "main", "scenario": MAIN["scenario"],
-          "K": K, **_profiled(main_run)})
     bf16, params = models[:2]
     gen = torch.Generator(device="cuda").manual_seed(PREFILL["seed"] + 2)
     tokens = torch.randint(0, bf16.cfg.vocab_size,
@@ -760,8 +964,22 @@ def phase_profile(models):
             bf16.prefill(params, tokens)
 
     prefill()
-    emit({"phase": "profile", "path": "rwkv_prefill", "arch": ARCH,
+    emit({"phase": "profile", "path": path, "arch": arch,
           "dtype": "bfloat16", **PREFILL, **_profiled(prefill)})
+
+
+def phase_profile(models):
+    from repro_torch.exp import run_experiment
+    K = 200
+    kw = dict(n=MAIN["n"], K=K, seeds=MAIN["seeds"], device="cuda")
+
+    def main_run():
+        run_experiment(("msync", {"m": MAIN["m"]}), MAIN["scenario"], **kw)
+
+    main_run()
+    emit({"phase": "profile", "path": "main", "scenario": MAIN["scenario"],
+          "K": K, **_profiled(main_run)})
+    _profile_prefill("rwkv_prefill", ARCH, models)
 
 
 def main():
@@ -774,13 +992,22 @@ def main():
     phase_build()
     kernel = phase_kernel()
     rwkv = phase_rwkv_kernel()
+    attn = phase_attn_kernel()
     launches, _ = phase_main()
     phase_sampled()
     phase_scale()
-    models = _full_width_params()
+    models = _full_width_params(ARCH)
     rwkv_launches = phase_rwkv_prefill(models)
     phase_rwkv_serve(models)
     phase_profile(models)
+    # one model's weights on the card at a time
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = _full_width_params(LLAMA)
+    attn_launches = phase_llama_prefill(models)
+    phase_llama_serve(models)
+    _profile_prefill("llama_prefill", LLAMA, models)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -790,6 +1017,7 @@ def main():
     at = kernel[(MAIN["seeds"], MAIN["n"], "float32")]
     max_err = max(rec["max_abs_err"] for rec in kernel.values())
     bf = rwkv["timing"]["bfloat16"]
+    at_bf = attn["timing"]["bfloat16"]
     emit({"kernels": [{
         "name": "mth_smallest", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/order_stats.cu",
@@ -809,6 +1037,20 @@ def main():
         "library_note": "no single PyTorch call computes this scan",
         "shape": rwkv["shape"], "dtype": "bfloat16",
         "path": "rwkv_prefill: Model.prefill of rwkv6-3b, B=2, S=4096, "
+                "bfloat16, one launch per layer"}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+        "launches": attn_launches, "max_abs_err": attn["max_abs_err"],
+        "ms": at_bf["kernel_ms"], "plain_ms": at_bf["plain_ms"],
+        "bound_ms": at_bf["bound_ms_bf16_tensor_cores"],
+        "bound_by": at_bf["bound_by"],
+        "bound_ms_float32_fma": at_bf["bound_ms_float32_fma"],
+        "library_ms": at_bf["library_ms"],
+        "library_note": "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), timed only",
+        "shape": attn["shape"], "dtype": "bfloat16",
+        "path": "llama_prefill: Model.prefill of llama3.2-3b, B=2, S=4096, "
                 "bfloat16, one launch per layer"}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

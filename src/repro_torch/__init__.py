@@ -10,6 +10,9 @@
   RWKV scan as a hand-written CUDA kernel, once per layer, and
   ``ServeEngine(model, params).generate([Request(...)])`` answers
   requests through ``Model.decode_step``.
+* The dense-attention model ``llama3.2-3b`` on the same entry points: its
+  ``prefill`` runs flash attention as a hand-written CUDA kernel, once
+  per layer; its decode attends over a KV cache.
 
 Everything runs on the GPU (``device="cuda"``, the default of the
 simulator; the model runs where its parameters lie), or on the CPU,

@@ -13,10 +13,10 @@ from .base import ModelConfig
 
 __all__ = ["ARCH_IDS", "ALIASES", "get_config"]
 
-ARCH_IDS = ["rwkv6_3b"]
+ARCH_IDS = ["llama3p2_3b", "rwkv6_3b"]
 
 # canonical dashed names -> module name
-ALIASES = {"rwkv6-3b": "rwkv6_3b"}
+ALIASES = {"llama3.2-3b": "llama3p2_3b", "rwkv6-3b": "rwkv6_3b"}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -19,6 +19,7 @@ _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "build"
 SOURCES = (_HERE / "csrc" / "order_stats.cu",
            _HERE / "csrc" / "rwkv_scan.cu",
+           _HERE / "csrc" / "flash_attention.cu",
            _HERE / "csrc" / "binding.cpp")
 _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 

@@ -1,4 +1,4 @@
-"""Basic layers: norms, embeddings, MLP. The port of
+"""Basic layers: norms, embeddings, MLP, rotary embedding. The port of
 ``src/repro/models/layers.py``: parameters are nested dicts of tensors
 with the reference's leaf names, and every draw comes from an explicit
 ``torch.Generator``."""
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "init_norm", "norm_apply", "init_embedding",
-           "init_mlp", "mlp_apply"]
+           "init_mlp", "mlp_apply", "rope"]
 
 
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
@@ -78,3 +78,24 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["w_down"]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding, half-split as in the reference: the first and
+    second halves of the head dimension are the two coordinates rotated.
+    x: (B, S, H, Dh); positions: (B, S) or (S,). Frequencies and angles in
+    float32; the product with x promotes to float32 before the cast back
+    to x's dtype, as in JAX."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)

@@ -74,9 +74,11 @@ class Model:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward pass -> (logits (B, S, vocab), aux_loss).
 
-        ``impl`` picks the RWKV scan (:data:`repro_torch.models.ssm.IMPLS`):
-        by default the CUDA kernel on the card. ``aux_loss`` is the MoE
-        router loss, zero for the blocks the port has.
+        ``impl`` picks the RWKV scan and the attention core
+        (:data:`repro_torch.models.ssm.IMPLS`,
+        :data:`repro_torch.models.attention.IMPLS`): by default the CUDA
+        kernels on the card. ``aux_loss`` is the MoE router loss, zero
+        for the blocks the port has.
         """
         if extra_embeds is not None or frames is not None:
             raise NotImplementedError("VLM patch embeddings and audio frames "
@@ -90,11 +92,13 @@ class Model:
                                   "(ROADMAP Queue A11)")
 
     # ---------------- serving ----------------
-    def init_cache(self, batch: int, device="cuda") -> dict:
-        """Decode state for ``batch`` sequences on ``device`` (the GPU
-        unless the caller passes ``device="cpu"``)."""
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        """Decode state for ``batch`` sequences of up to ``max_len`` tokens
+        on ``device`` (the GPU unless the caller passes ``device="cpu"``).
+        Attention blocks get a KV cache of ``max_len`` positions; RWKV
+        blocks keep a fixed-size state and ignore it."""
         cfg = self.cfg
-        return {"stages": [init_stage_cache(cfg, s, batch, device)
+        return {"stages": [init_stage_cache(cfg, s, batch, max_len, device)
                            for s in cfg.stages],
                 "len": 0}
 
@@ -108,13 +112,14 @@ class Model:
         return self._logits(params, x[:, -1:])[:, 0]
 
     def decode_step(self, params, token, cache):
-        """One decode step. token: (B, 1) int -> (logits (B, V), cache)."""
+        """One decode step. token: (B, 1) int -> (logits (B, V), cache).
+        KV caches are written in place at position ``cache["len"]``."""
         cfg = self.cfg
         cache_len = cache["len"]
         x = self._embed(params, token, offset=cache_len)
         new_stages = []
         for sp, sc, s in zip(params["stages"], cache["stages"], cfg.stages):
-            x, nc = stage_decode(sp, x, sc, s, cfg)
+            x, nc = stage_decode(sp, x, sc, s, cache_len, cfg)
             new_stages.append(nc)
         logits = self._logits(params, x)[:, 0]
         return logits, {"stages": new_stages, "len": cache_len + 1}

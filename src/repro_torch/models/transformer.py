@@ -15,6 +15,8 @@ from typing import List, Optional
 import torch
 
 from ..configs.base import Block, ModelConfig, Stage
+from .attention import (attn_apply, decode_attn_apply, init_attn,
+                        init_kv_cache)
 from .layers import init_mlp, init_norm, mlp_apply, norm_apply
 from .ssm import init_rwkv, init_rwkv_state, rwkv_apply, rwkv_decode
 
@@ -22,10 +24,7 @@ __all__ = ["init_block", "init_stage", "stage_apply", "init_block_cache",
            "init_stage_cache", "stage_decode", "model_dtype"]
 
 _NOT_PORTED = {
-    "attn": "attention blocks wait for the flash-attention kernel "
-            "(ROADMAP Queue B4)",
-    "cross": "cross-attention waits for the flash-attention kernel and the "
-             "encoder (ROADMAP Queue B4)",
+    "cross": "cross-attention waits for the encoder (ROADMAP Queue A10)",
     "mamba": "the Mamba mixer is not ported yet (ROADMAP Queue A10)",
     "moe": "the MoE feed-forward waits for the grouped-matmul kernel "
            "(ROADMAP Queue B2)",
@@ -41,7 +40,7 @@ def _check_block(block: Block) -> None:
     for kind in (block.mixer, block.ff):
         if kind in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[kind])
-    if block.mixer != "rwkv":
+    if block.mixer not in ("attn", "rwkv"):
         raise ValueError(f"unknown mixer {block.mixer!r}")
     if block.ff not in ("mlp", "none"):
         raise ValueError(f"unknown feed-forward {block.ff!r}")
@@ -51,8 +50,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, block: Block) -> dict:
     _check_block(block)
     dt = model_dtype(cfg)
     d = cfg.d_model
-    p = {"norm1": init_norm(d, cfg.norm, dt, gen.device),
-         "mixer": init_rwkv(gen, d, cfg.ssm.head_dim, dtype=dt)}
+    p = {"norm1": init_norm(d, cfg.norm, dt, gen.device)}
+    if block.mixer == "attn":
+        a = cfg.attn
+        p["mixer"] = init_attn(gen, d, a.num_heads, a.num_kv_heads,
+                               a.head_dim, dtype=dt)
+    else:
+        p["mixer"] = init_rwkv(gen, d, cfg.ssm.head_dim, dtype=dt)
     if block.ff != "none":
         p["norm2"] = init_norm(d, cfg.norm, dt, gen.device)
         p["ff"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_act, dtype=dt)
@@ -71,7 +75,11 @@ def _block_apply(p: dict, x, block: Block, cfg, impl: Optional[str]):
     """One block forward (prefill)."""
     _check_block(block)
     h = norm_apply(p["norm1"], x, cfg.norm_eps)
-    x = x + rwkv_apply(p["mixer"], h, cfg, impl=impl)
+    if block.mixer == "attn":
+        h = attn_apply(p["mixer"], h, cfg, causal=cfg.attn.causal, impl=impl)
+    else:
+        h = rwkv_apply(p["mixer"], h, cfg, impl=impl)
+    x = x + h
     if block.ff != "none":
         h = norm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(p["ff"], h, cfg.mlp_act)
@@ -88,24 +96,33 @@ def stage_apply(params: List[dict], x, stage: Stage, cfg,
 
 
 def init_block_cache(cfg: ModelConfig, block: Block, batch: int,
-                     device="cuda") -> dict:
+                     max_len: int, device="cuda") -> dict:
+    """A KV cache of ``max_len`` positions for an attention block, the
+    recurrent state (which ignores ``max_len``) for an RWKV block."""
     _check_block(block)
+    if block.mixer == "attn":
+        a = cfg.attn
+        return init_kv_cache(batch, max_len, a.num_kv_heads, a.head_dim,
+                             model_dtype(cfg), device)
     return init_rwkv_state(batch, cfg.d_model, cfg.ssm.head_dim,
                            model_dtype(cfg), device)
 
 
 def init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
-                     device="cuda") -> List[dict]:
+                     max_len: int, device="cuda") -> List[dict]:
     """Per-repeat caches matching :func:`init_stage`'s layout."""
-    return [{f"b{i}": init_block_cache(cfg, b, batch, device)
+    return [{f"b{i}": init_block_cache(cfg, b, batch, max_len, device)
              for i, b in enumerate(stage.pattern)}
             for _ in range(stage.repeats)]
 
 
-def _block_decode(p: dict, x, cache, block: Block, cfg):
+def _block_decode(p: dict, x, cache, block: Block, cache_len: int, cfg):
     _check_block(block)
     h = norm_apply(p["norm1"], x, cfg.norm_eps)
-    h, cache = rwkv_decode(p["mixer"], h, cache, cfg)
+    if block.mixer == "attn":
+        h, cache = decode_attn_apply(p["mixer"], h, cache, cache_len, cfg)
+    else:
+        h, cache = rwkv_decode(p["mixer"], h, cache, cfg)
     x = x + h
     if block.ff != "none":
         h = norm_apply(p["norm2"], x, cfg.norm_eps)
@@ -114,13 +131,15 @@ def _block_decode(p: dict, x, cache, block: Block, cfg):
 
 
 def stage_decode(params: List[dict], x, caches: List[dict], stage: Stage,
-                 cfg):
-    """One-token decode through a stage -> (x, new caches)."""
+                 cache_len: int, cfg):
+    """One-token decode through a stage -> (x, new caches). KV caches are
+    written in place; RWKV states are replaced."""
     new_caches = []
     for unit, unit_cache in zip(params, caches):
         new = {}
         for i, b in enumerate(stage.pattern):
             x, new[f"b{i}"] = _block_decode(unit[f"b{i}"], x,
-                                            unit_cache[f"b{i}"], b, cfg)
+                                            unit_cache[f"b{i}"], b,
+                                            cache_len, cfg)
         new_caches.append(new)
     return x, new_caches

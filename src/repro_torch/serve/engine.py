@@ -73,7 +73,8 @@ class ServeEngine:
                 if slots[i] is None and queue:
                     req = queue.popleft()
                     slots[i] = req
-                    caches[i] = self.model.init_cache(1, self.device)
+                    caches[i] = self.model.init_cache(1, self.max_len,
+                                                      self.device)
                     # prefill token by token, as the reference does
                     for t in req.prompt[:-1]:
                         _, caches[i] = self._decode(int(t), caches[i])

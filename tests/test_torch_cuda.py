@@ -1,6 +1,6 @@
 """The port on the GPU: the CUDA kernels against their plain versions,
-the simulator on the card against the same run on the CPU, and the RWKV
-model's prefill through its scan kernel.
+the simulator on the card against the same run on the CPU, and the
+prefills of the RWKV and attention models through their kernels.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor the JAX package, so it runs on a machine with PyTorch
@@ -17,6 +17,7 @@ from repro_torch.core import rng
 from repro_torch.core.oracle import quadratic_worst_case_torch
 from repro_torch.core.time_models import (FixedTimes, exponential_times,
                                           powers_figure3)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import order_stats
 from repro_torch.kernels import rwkv_scan as rs
 
@@ -183,30 +184,135 @@ def test_rwkv_wrapper_refuses(cuda, bad):
         rs.rwkv_scan(r, k, v, w, u)
 
 
-def _card_model(cuda):
-    cfg = reduced(get_config("rwkv6-3b"), d_model=128, layers_per_stage=2,
-                  vocab=256)
+# (B, Sq, Sk, H, KV, dh, causal, window): small shapes of the kinds the
+# attn_kernel phase of chip_smoke.py checks, at every head size the
+# kernel is built for
+FLASH_CASES = [
+    (1, 1, 1, 24, 8, 128, True, None),
+    (2, 63, 63, 24, 8, 128, True, None),
+    (1, 65, 65, 3, 1, 64, True, None),
+    (1, 129, 129, 4, 4, 32, True, None),
+    (2, 100, 100, 6, 2, 64, False, None),
+    (1, 130, 130, 6, 2, 128, True, 1),
+    (1, 130, 130, 3, 1, 32, True, 64),
+    (2, 70, 70, 6, 2, 64, False, 1000),
+    (1, 150, 40, 6, 2, 128, True, 16),     # rows with no valid key
+    (1, 40, 150, 6, 2, 64, True, None),
+]
+# max |o - o64| <= tol * max |o64| once each element's rounding to the
+# output type (unit roundoff u times |o64|) is taken off: no kernel with a
+# bfloat16 output can do better than u = 2**-8 of an element; past that,
+# float32 arithmetic is all that is left for either input type
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-5}
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+
+
+def _flash_inputs(B, Sq, Sk, H, KV, dh, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Sq, H, dh), generator=g).to(dtype)
+    k, v = (torch.randn((B, Sk, KV, dh), generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_f64_plain(cuda, B, Sq, Sk, H, KV, dh, causal,
+                                        window, dtype):
+    q, k, v = _flash_inputs(B, Sq, Sk, H, KV, dh, dtype, seed=Sq * H + dh)
+    o = fa.flash_attention(*(a.to(cuda) for a in (q, k, v)), causal=causal,
+                           window=window, impl="kernel")
+    torch.cuda.synchronize()
+    o64 = fa.flash_attention_plain(*(a.double() for a in (q, k, v)),
+                                   causal=causal, window=window)
+    assert o.dtype == dtype and o.shape == q.shape
+    excess = ((o.cpu().double() - o64).abs()
+              - UNIT_ROUNDOFF[dtype] * o64.abs()).max()
+    assert float(excess / o64.abs().max()) <= FLASH_TOL[dtype]
+    empty = o64.abs().amax(dim=(0, 2, 3)) == 0
+    assert not o.cpu()[:, empty].any()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_head_split_views(cuda, dtype, aligned):
+    """q, k, v cut out of one packed projection, as strided views; with
+    the buffer one element off 16-byte alignment the kernel reads its
+    tiles one element a load."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 77, 6 + 2 + 2, 64)
+    flat = torch.randn(2 * 77 * 10 * 64 + 1, generator=g,
+                       device=cuda).to(dtype)
+    qkv = (flat[:-1] if aligned else flat[1:]).view(shape)
+    assert (qkv.data_ptr() % 16 == 0) == aligned
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_counts_its_launches(cuda):
+    q, k, v = (a.to(cuda) for a in _flash_inputs(1, 5, 5, 2, 1, 32,
+                                                 torch.float32, seed=0))
+    before = fa.launch_counts["flash_attention"]
+    fa.flash_attention(q, k, v)
+    fa.flash_attention(q, k, v, impl="ref")
+    fa.flash_attention_plain(q, k, v)
+    assert fa.launch_counts["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("bad", ["head96", "half", "mixed", "strided_d"])
+def test_flash_wrapper_refuses(cuda, bad):
+    dh = 96 if bad == "head96" else 64
+    q, k, v = (a.to(cuda) for a in _flash_inputs(1, 9, 9, 4, 2, dh,
+                                                 torch.float32, seed=1))
+    if bad == "half":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        k = k.bfloat16()
+    elif bad == "strided_d":
+        q = q[..., ::2]
+        k, v = k[..., ::2], v[..., ::2]
+    with pytest.raises((TypeError, ValueError), match="96|32, 64|float|"
+                       "contiguous"):
+        fa.flash_attention(q, k, v)
+
+
+# the kernel each architecture's prefill launches once a layer; llama at
+# full depth (28 layers), reduced width (4 heads of 32)
+CARD_MODELS = {"rwkv6-3b": (rs, "rwkv_scan", 2),
+               "llama3.2-3b": (fa, "flash_attention", 28)}
+
+
+def _card_model(cuda, arch):
+    cfg = reduced(get_config(arch), d_model=128,
+                  layers_per_stage=CARD_MODELS[arch][2], vocab=256)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
     return model, params
 
 
-def test_model_prefill_on_card_launches_the_kernel(cuda):
-    model, params = _card_model(cuda)
+@pytest.mark.parametrize("arch", sorted(CARD_MODELS))
+def test_model_prefill_on_card_launches_the_kernel(cuda, arch):
+    module, name, _ = CARD_MODELS[arch]
+    model, params = _card_model(cuda, arch)
     tokens = torch.randint(0, 256, (2, 70), device=cuda)
-    before = rs.launch_counts["rwkv_scan"]
+    layers = model.cfg.num_layers
+    before = module.launch_counts[name]
     with torch.inference_mode():
         got = model.prefill(params, tokens)
-        assert rs.launch_counts["rwkv_scan"] == before + model.cfg.num_layers
+        assert module.launch_counts[name] == before + layers
         forced = model.prefill(params, tokens, impl="kernel")
         plain = model.prefill(params, tokens, impl="ref")
-    assert rs.launch_counts["rwkv_scan"] == before + 2 * model.cfg.num_layers
+    assert module.launch_counts[name] == before + 2 * layers
     assert torch.equal(got, forced)
     assert float((got - plain).norm() / plain.norm()) <= 1e-4
 
 
-def test_engine_on_card_matches_the_kernel_prefill(cuda):
-    model, params = _card_model(cuda)
+@pytest.mark.parametrize("arch", sorted(CARD_MODELS))
+def test_engine_on_card_matches_the_kernel_prefill(cuda, arch):
+    model, params = _card_model(cuda, arch)
     g = np.random.default_rng(0)
     reqs = [Request(prompt=g.integers(0, 256, size=n), max_new_tokens=3)
             for n in (5, 20, 66)]

@@ -37,6 +37,7 @@ def test_the_check_sees_the_package():
     assert {"order_stats.py", "batch_torch.py", "runner.py",
             "chip_smoke.py", "rwkv_scan.py", "ssm.py", "layers.py",
             "transformer.py", "model.py", "engine.py", "registry.py",
-            "rwkv6_3b.py", "convert.py"} <= names
+            "rwkv6_3b.py", "convert.py", "attention.py",
+            "flash_attention.py", "llama3p2_3b.py"} <= names
     assert _banned("repro.core") and _banned("jax.numpy")
     assert not _banned("repro_torch.core")

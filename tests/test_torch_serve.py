@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX package's, on the CPU, on
-``reduced(rwkv6-3b, d_model=64, layers_per_stage=2, vocab=128)`` in
-float32 with the JAX weights carried across.
+``reduced(arch, d_model=64, layers_per_stage=2, vocab=128)`` of
+``rwkv6-3b`` and of ``llama3.2-3b`` in float32, with the JAX weights
+carried across.
 
 Greedy tokens are compared wherever the reference's top-2 logit gap
 exceeds 1e-4; below that the two may pick either token, and the rest of
@@ -26,12 +27,12 @@ REDUCED = dict(d_model=64, layers_per_stage=2, vocab=128)
 GAP = 1e-4
 
 
-@pytest.fixture(scope="module")
-def pair():
-    ref_model = ref_build_model(ref_reduced(ref_get_config("rwkv6-3b"),
-                                            **REDUCED))
+@pytest.fixture(scope="module", params=("rwkv6-3b", "llama3.2-3b"))
+def pair(request):
+    arch = request.param
+    ref_model = ref_build_model(ref_reduced(ref_get_config(arch), **REDUCED))
     ref_params = ref_model.init_params(jax.random.key(11))
-    model = build_model(reduced(get_config("rwkv6-3b"), **REDUCED))
+    model = build_model(reduced(get_config(arch), **REDUCED))
     params = model_params_from(jax.tree.map(np.asarray, ref_params),
                                device="cpu")
     return ref_model, ref_params, model, params
